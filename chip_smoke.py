@@ -10,28 +10,28 @@ Phases (any failure is an exception and a non-zero exit):
 1. card   -- require CUDA; print the card's name and power limit.
 2. build  -- compile every ``veloci_tpu_torch/csrc/*.cu`` with nvcc, all at
              once; print the seconds and nvcc's register/spill report.
-3. kernel -- the banded Levenshtein sweep kernel against its plain PyTorch
-             version on the card, band 2 and 4, Q = 1, 64 and 256, on the
-             slice's field dictionary and on a synthetic 1,000,000-term
-             dictionary; all three outputs must be equal (tolerance: exact,
-             the outputs are integers). Median ms of each, CUDA events.
+3. kernel -- each Levenshtein sweep kernel against its plain PyTorch version
+             on the card: the banded one at band 2 and 4 and the full-width
+             one, Q = 1, 64 and 256, on the slice's field dictionary and on a
+             synthetic 1,000,000-term dictionary; all three outputs must be
+             equal (tolerance: exact, the outputs are integers). Median ms of
+             each, CUDA events.
 4. slice  -- a jmdict-shaped 200,000-document corpus (the generator of
              bench.py's build_corpus, seed 1234) is built with the reused
              host builder, saved, read back by the port's reader and uploaded.
-             The main path -- ``search_batch`` on batches of 256 exact, ~1 and
-             ~2 requests and on single fuzzy requests -- runs with the
-             kernels' launch counters set to 0 just before and read just
-             after; every kernel must have launched. Answers are checked for
-             shape and order, and requests are answered again on the CPU
-             through the plain versions from the same index: ids, order,
-             num_hits and f32 score bits must be identical.
+             Two main paths through ``search_batch``: single leaves (batches
+             of 256 exact, ~1 and ~2 requests, and single fuzzy requests),
+             then query trees (batches of 256 query-string requests from the
+             query generator -- two or three zipf words, some of them ``*``
+             wildcards, each pair joined by AND or OR -- and of 256 explicit AND-of-ORs
+             fuzzy requests). Each path runs with the kernels' launch
+             counters set to 0 just before it and read just after; each
+             kernel the path needs must have launched. Answers are checked for shape and
+             order, and requests are answered again on the CPU through the
+             plain versions from the same index: ids, order, num_hits and f32
+             score bits must be identical.
 5. profile -- one batch of each mix under torch.profiler: the device's busy
              share of the batch's wall time and its largest kernels.
-
-The last three lines of stdout are the card line, one ``{"kernels": [...]}``
-JSON object, and ``{"ok": true, "device": {...}}``. A fuller report goes to
-``chiprun_out/chip_smoke_report.json``. Everything the script builds is
-written under ``build/``.
 """
 
 from __future__ import annotations
@@ -52,7 +52,8 @@ ROOT = Path(__file__).resolve().parent
 N_DOCS = 200_000
 BATCH = 256
 TIMED_BATCHES = 16  # per mix
-CPU_CHECKED_BATCHES = 4  # per mix, re-answered on the CPU
+CPU_CHECKED_BATCHES = 4  # per single-leaf mix, re-answered on the CPU
+CPU_CHECKED_TREE_BATCHES = 1  # per tree mix (their CPU sweeps are full-width)
 SINGLES = 32  # one-request batches (single-query sweep entry point)
 SYNTH_TERMS = 1_000_000
 
@@ -122,9 +123,10 @@ def mutate(word: str, edits: int, rng) -> str:
     return "".join(w)
 
 
-def request_mixes(vocab, probs, rng):
-    """Per mix, TIMED_BATCHES batches of BATCH request dicts; terms drawn
-    with the corpus's own zipfian weights."""
+def request_mixes(vocab, probs, rng, fields):
+    """Per mix, TIMED_BATCHES batches of BATCH requests, each a request dict
+    or a query string for the generator; terms drawn with the corpus's own
+    zipfian weights."""
     mixes = {}
     for name, edits in (("exact", 0), ("fuzzy_d1", 1), ("fuzzy_d2", 2)):
         batches = []
@@ -137,6 +139,36 @@ def request_mixes(vocab, probs, rng):
                 batch.append({"search_req": {"search": leaf}, "top": 10})
             batches.append(batch)
         mixes[name] = batches
+    # the server's folded `search?query=` requests: 2-3 words, about one in
+    # three a wildcard of its first 4-6 chars, words joined by AND or by a
+    # space (OR) half the time each: "a AND b c" is an OR of an AND
+    batches = []
+    for _ in range(TIMED_BATCHES):
+        batch = []
+        for _q in range(BATCH):
+            words = [str(w) for w in rng.choice(vocab, size=int(rng.integers(2, 4)), p=probs)]
+            words = [w[: int(rng.integers(4, 7))] + "*" if rng.random() < 1 / 3 else w for w in words]
+            query = words[0]
+            for w in words[1:]:
+                query += (" AND " if rng.random() < 0.5 else " ") + w
+            batch.append(query)
+        batches.append(batch)
+    mixes["query_string"] = batches
+    # explicit AND of two per-word ORs over every searchable field, d 1-2
+    batches = []
+    for _ in range(TIMED_BATCHES):
+        batch = []
+        for _q in range(BATCH):
+            groups = []
+            for w in rng.choice(vocab, size=2, p=probs):
+                d = int(rng.integers(1, 3))
+                groups.append({"or": {"queries": [
+                    {"search": {"terms": [str(w)], "path": f, "levenshtein_distance": d}}
+                    for f in fields
+                ]}})
+            batch.append({"search_req": {"and": {"queries": groups}}, "top": 10})
+        batches.append(batch)
+    mixes["and_of_ors_fuzzy"] = batches
     return mixes
 
 
@@ -162,7 +194,7 @@ def time_ms(fn, warmup: int = 2, iters: int = 5, reps: int = 5) -> float:
 # ---------------------------------------------------------------- phases
 def kernel_phase(sweep, encode_query, dictionaries, rng, report):
     """Kernel vs plain on the card at every shape; exact equality."""
-    err = {"batch": 0, "single": 0}
+    err = {"batch": 0, "single": 0, "full": 0}
     times = {}
     for dname, (chars_t, lens, words) in dictionaries.items():
         n = chars_t.shape[1]
@@ -171,33 +203,41 @@ def kernel_phase(sweep, encode_query, dictionaries, rng, report):
             enc = [encode_query(mutate(str(w), int(rng.integers(3)), rng)) for w in picked]
             queries = torch.from_numpy(np.stack([e[0] for e in enc])).cuda()
             qlens = torch.tensor([e[1] for e in enc], dtype=torch.int32, device="cuda")
-            for band in (2, 4):
-                if q == 1:
+            for band in (2, 4, None):
+                if band is None:
                     def kern():
-                        return sweep.levenshtein_sweep_banded(
-                            chars_t, lens, queries[0], qlens, band=band
-                        )
-                    entry = "single"
+                        return sweep.levenshtein_sweep_full_batch(chars_t, lens, queries, qlens)
+
+                    def plain():
+                        return sweep.levenshtein_sweep_full_batch_plain(chars_t, lens, queries, qlens)
+                    entry = "full"
                 else:
-                    def kern():
-                        return sweep.levenshtein_sweep_banded_batch(
+                    if q == 1:
+                        def kern():
+                            return sweep.levenshtein_sweep_banded(
+                                chars_t, lens, queries[0], qlens, band=band
+                            )
+                        entry = "single"
+                    else:
+                        def kern():
+                            return sweep.levenshtein_sweep_banded_batch(
+                                chars_t, lens, queries, qlens, band=band
+                            )
+                        entry = "batch"
+
+                    def plain():
+                        return sweep.levenshtein_sweep_banded_batch_plain(
                             chars_t, lens, queries, qlens, band=band
                         )
-                    entry = "batch"
-
-                def plain():
-                    return sweep.levenshtein_sweep_banded_batch_plain(
-                        chars_t, lens, queries, qlens, band=band
-                    )
 
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
-                if q == 1:
+                if entry == "single":
                     want = tuple(w[0] for w in want)
                 for g, w in zip(got, want):
                     if g.shape != w.shape or not torch.equal(g, w):
                         raise AssertionError(
-                            f"sweep kernel != plain: {dname} N={n} Q={q} band={band}"
+                            f"sweep kernel != plain: {dname} N={n} Q={q} {entry} band={band}"
                         )
                 e = max(int((g.to(torch.int32) - w.to(torch.int32)).abs().max()) if g.numel() else 0
                         for g, w in zip(got, want))
@@ -209,12 +249,12 @@ def kernel_phase(sweep, encode_query, dictionaries, rng, report):
                 row = dict(dictionary=dname, terms=n, queries=q, band=band, entry=entry,
                            equal=True, kernel_ms=k_ms, plain_ms=p_ms)
                 report["kernel_rows"].append(row)
-                log(f"kernel {dname:>9} N={n:>8} Q={q:>3} band={band} {entry:>6}: "
-                    f"equal, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                log(f"kernel {dname:>9} N={n:>8} Q={q:>3} {'band=' + str(band) if band else 'full  '} "
+                    f"{entry:>6}: equal, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
     return err, times
 
 
-def profile_phase(vt, index, requests_of, report):
+def profile_phase(vt, index, requests_of, make, report):
     """One batch of each mix under torch.profiler: the share of the wall
     time the device was busy, and the kernels that took it (the profiler's
     own overhead inflates the wall time, so the share is a lower bound)."""
@@ -222,7 +262,7 @@ def profile_phase(vt, index, requests_of, report):
     from torch.profiler import ProfilerActivity, profile
 
     for name, batches in requests_of.items():
-        reqs = [vt.Request.from_dict(d) for d in batches[1]]
+        reqs = [make(d, index) for d in batches[1]]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             vt.search_batch(reqs, index)
@@ -244,7 +284,7 @@ def profile_phase(vt, index, requests_of, report):
 
 
 def check_result(res, req):
-    top = req["top"]
+    top = req["top"] if isinstance(req, dict) else 10
     assert 0 <= len(res.data) <= top and res.num_hits >= len(res.data), res
     scores = np.array([h.score for h in res.data], dtype=np.float64)
     ids = np.array([h.id for h in res.data], dtype=np.int64)
@@ -338,16 +378,22 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- main path
-    mixes = request_mixes(vocab, probs, rng)
+    mixes = request_mixes(vocab, probs, rng, sorted(index.key_base))
     singles = [
         {"search_req": {"search": {"terms": [mutate(str(w), 2, rng)], "path": "title",
                                    "levenshtein_distance": 2}}, "top": 10}
         for w in rng.choice(vocab, size=SINGLES, p=probs)
     ]
-    req = vt.Request.from_dict
+
+    def make(spec, idx):
+        """A request dict, or a query string through the query generator."""
+        if isinstance(spec, str):
+            return vt.search_query(idx, vt.SearchQueryGeneratorParameters(search_term=spec))
+        return vt.Request.from_dict(spec)
+
     for name, batches in mixes.items():  # warm-up: first-touch allocations
-        vt.search_batch([req(d) for d in batches[0]], index)
-    vt.search_batch([req(singles[0])], index)
+        vt.search_batch([make(d, index) for d in batches[0]], index)
+    vt.search_batch([make(singles[0], index)], index)
     torch.cuda.synchronize()
 
     gc_full_ms = []  # full (generation 2) garbage collections during the main path
@@ -359,43 +405,57 @@ def main() -> None:
         elif info["generation"] == 2:
             gc_full_ms.append((time.perf_counter() - gc_start[0]) * 1e3)
 
-    gc.callbacks.append(on_gc)
-    levenshtein_sweep.levenshtein_sweep_banded_batch.launches = 0
-    levenshtein_sweep.levenshtein_sweep_banded.launches = 0
+    kernel_fns = {
+        name: getattr(levenshtein_sweep, name)
+        for name in ("levenshtein_sweep_banded_batch", "levenshtein_sweep_banded",
+                     "levenshtein_sweep_full_batch")
+    }
+    requests_of = dict(mixes, single_fuzzy_d2=[[d] for d in singles])
+    # the main paths, each with the kernels it must launch: the single-leaf
+    # requests, then the query-string trees
+    paths = (
+        ("single_leaf", ("exact", "fuzzy_d1", "fuzzy_d2", "single_fuzzy_d2"),
+         ("levenshtein_sweep_banded_batch", "levenshtein_sweep_banded")),
+        ("query_trees", ("query_string", "and_of_ors_fuzzy"),
+         ("levenshtein_sweep_banded_batch", "levenshtein_sweep_full_batch")),
+    )
     answers = {}
     lat = {}
-    for name, batches in mixes.items():
-        lat[name] = []
-        answers[name] = []
-        for batch in batches:
-            reqs = [req(d) for d in batch]
-            t0 = time.perf_counter()
-            res = vt.search_batch(reqs, index)
-            lat[name].append(time.perf_counter() - t0)
-            answers[name].append(res)
-    lat["single_fuzzy_d2"] = []
-    answers["single_fuzzy_d2"] = []
-    for d in singles:
-        t0 = time.perf_counter()
-        res = vt.search_batch([req(d)], index)
-        lat["single_fuzzy_d2"].append(time.perf_counter() - t0)
-        answers["single_fuzzy_d2"].append(res)
-    torch.cuda.synchronize()
-    launches = {
-        "levenshtein_sweep_banded_batch": levenshtein_sweep.levenshtein_sweep_banded_batch.launches,
-        "levenshtein_sweep_banded": levenshtein_sweep.levenshtein_sweep_banded.launches,
-    }
+    rows_per_batch = {}  # posting rows gathered per batch, by mix
+    path_launches = {}
+    gc.callbacks.append(on_gc)
+    for path, names, needed in paths:
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        for name in names:
+            lat[name], answers[name], rows_per_batch[name] = [], [], []
+            for batch in requests_of[name]:
+                reqs = [make(d, index) for d in batch]
+                rows0 = sum(index.gathered_rows.values())
+                t0 = time.perf_counter()
+                res = vt.search_batch(reqs, index)
+                lat[name].append(time.perf_counter() - t0)
+                rows_per_batch[name].append(sum(index.gathered_rows.values()) - rows0)
+                answers[name].append(res)
+        torch.cuda.synchronize()
+        path_launches[path] = {name: fn.launches for name, fn in kernel_fns.items()}
+        log(f"main path {path} launches: {path_launches[path]}")
+        for k in needed:
+            if path_launches[path][k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched by the main path {path}")
     gc.callbacks.remove(on_gc)
+    launches = {k: sum(p[k] for p in path_launches.values()) for k in kernel_fns}
     log(f"main path launches: {launches}; routes: {dict(index.path_counts)}")
     log(f"main path: {len(gc_full_ms)} full garbage collections, "
         f"ms each: {[round(t, 1) for t in gc_full_ms]}")
+    for name, rows in rows_per_batch.items():
+        log(f"rows gathered per batch {name:>16}: median {int(np.median(rows))}, "
+            f"max {max(rows)}")
     report["slice"]["gc_full_ms"] = gc_full_ms
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the main path")
+    report["slice"]["rows_per_batch"] = rows_per_batch
+    report["slice"]["path_launches"] = path_launches
 
     # ---- checks: shape and order, then the CPU plain path on the same index
-    requests_of = dict(mixes, single_fuzzy_d2=[[d] for d in singles])
     hits = 0
     for name, results in answers.items():
         for batch, res in zip(requests_of[name], results):
@@ -407,18 +467,23 @@ def main() -> None:
         raise AssertionError(f"only {hits} requests found anything")
     cpu_index = vt.load_index(str(index_dir), "cpu")
     checked = 0
-    t0 = time.perf_counter()
     for name, results in answers.items():
-        n_check = CPU_CHECKED_BATCHES if name in mixes else len(results)
+        if name not in mixes:
+            n_check = len(results)
+        elif name in ("query_string", "and_of_ors_fuzzy"):
+            n_check = CPU_CHECKED_TREE_BATCHES
+        else:
+            n_check = CPU_CHECKED_BATCHES
+        t0 = time.perf_counter()
         for batch, res in list(zip(requests_of[name], results))[:n_check]:
-            cpu = vt.search_batch([req(d) for d in batch], cpu_index)
+            cpu = vt.search_batch([make(d, cpu_index) for d in batch], cpu_index)
             for a, b, d in zip(res, cpu, batch):
                 if result_key(a) != result_key(b):
                     raise AssertionError(f"GPU != CPU plain path for {d}")
             checked += len(batch)
-    cpu_s = time.perf_counter() - t0
+        log(f"checked on the CPU: {name}, {n_check} batch(es) in {time.perf_counter() - t0:.1f} s")
     log(f"checked: every answer finite, <= top, (score desc, id desc); {checked} "
-        f"requests identical to the CPU plain path ({cpu_s:.1f} s on the CPU)")
+        f"requests identical to the CPU plain path")
 
     for name, samples in lat.items():
         n_req = 1 if name.startswith("single") else BATCH
@@ -430,7 +495,7 @@ def main() -> None:
         log(f"slice {name:>16}: batch {n_req:>3} x {len(ms)}: p50 {row['p50_ms']:.3f} ms, "
             f"p99 {row['p99_ms']:.3f} ms, {row['qps']:.1f} QPS")
 
-    profile_phase(vt, index, requests_of, report)
+    profile_phase(vt, index, requests_of, make, report)
 
     main_shape = ("title", 256, 2)
     kernels = [
@@ -446,6 +511,12 @@ def main() -> None:
          "launches": launches["levenshtein_sweep_banded"],
          "max_abs_err": kernel_err["single"],
          "ms": kernel_times[("title", 1, 2)][0], "plain_ms": kernel_times[("title", 1, 2)][1]},
+        {"name": "levenshtein_sweep_full_batch", "route": "cuda",
+         "source": "veloci_tpu_torch/csrc/full_levenshtein.cu",
+         "replaces": "veloci_tpu/ops/pallas_levenshtein.py:72",
+         "launches": launches["levenshtein_sweep_full_batch"],
+         "max_abs_err": kernel_err["full"],
+         "ms": kernel_times[("title", 256, None)][0], "plain_ms": kernel_times[("title", 256, None)][1]},
     ]
     report["kernels"] = kernels
     report["launches"] = launches

@@ -1,7 +1,8 @@
-"""Port tests that need a CUDA device: the hand-written sweep kernel against
-its plain PyTorch version on the card, and the slice on the card against the
-same index on the CPU. Tolerance: exact equality (integer outputs; the same
-f32 products on both devices).
+"""Port tests that need a CUDA device: the hand-written sweep kernels (banded
+and full-width) against their plain PyTorch versions on the card, and the
+slice on the card against the same index on the CPU. Tolerance: exact
+equality (integer outputs; the same f32 products, and sums taken in the
+same order, on both devices).
 
 They carry the ``cuda`` marker and skip where no card is present. This file
 imports no JAX, so it also runs where only PyTorch is installed:
@@ -14,12 +15,21 @@ import pytest
 
 import torch
 
-from veloci_tpu_torch import Request, TorchIndex, _host, search_batch
+from veloci_tpu_torch import (
+    Request,
+    SearchQueryGeneratorParameters,
+    TorchIndex,
+    _host,
+    search_batch,
+    search_query,
+)
 from veloci_tpu_torch.ops.levenshtein import encode_query
 from veloci_tpu_torch.ops.levenshtein_sweep import (
     levenshtein_sweep_banded,
     levenshtein_sweep_banded_batch,
     levenshtein_sweep_banded_batch_plain,
+    levenshtein_sweep_full_batch,
+    levenshtein_sweep_full_batch_plain,
 )
 
 
@@ -66,6 +76,28 @@ def test_kernel_equals_plain_on_card(card, band):
 
 
 @pytest.mark.cuda
+def test_full_kernel_equals_plain_on_card(card):
+    rng = np.random.default_rng(5)
+    chars, lens = _dictionary(5003, rng)
+    words = ["", "a", "abc", "fedcba" * 5 + "a", "b" * 32, "é日"] + [
+        "".join(rng.choice(list("abcdef"), size=int(k))) for k in rng.integers(1, 33, 64)
+    ]
+    enc = [encode_query(w) for w in words]  # 70 queries: crosses a 64-query chunk
+    queries = torch.from_numpy(np.stack([q for q, _n in enc])).to(card)
+    qlens = torch.tensor([n for _q, n in enc], dtype=torch.int32, device=card)
+    chars_t, lens_t = torch.from_numpy(chars).to(card), torch.from_numpy(lens).to(card)
+
+    before = levenshtein_sweep_full_batch.launches
+    got = levenshtein_sweep_full_batch(chars_t, lens_t, queries, qlens)
+    want = levenshtein_sweep_full_batch_plain(chars_t, lens_t, queries, qlens)
+    torch.cuda.synchronize()
+    assert levenshtein_sweep_full_batch.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[0][:, lens > 0].max()) > 4  # true distances beyond any band
+
+
+@pytest.mark.cuda
 def test_search_on_card_equals_cpu(card):
     rng = np.random.default_rng(11)
     vocab = [f"w{i:x}{'abcdefgh'[i % 8] * (1 + i % 7)}" for i in range(800)] + ["Apple", "apple"]
@@ -84,8 +116,24 @@ def test_search_on_card_equals_cpu(card):
             ("w2ccc", {"levenshtein_distance": 2}), ("w3dddd", {"levenshtein_distance": 3}),
         ]
     ]
+    leaf = {"search": {"terms": ["w1bb"], "path": "title"}}
+    dicts += [
+        {"search_req": {"search": {"terms": ["w1a"], "path": "title", "starts_with": True,
+                                   "levenshtein_distance": 1}}},
+        {"search_req": {"search": {"terms": ["w1bbbbb"], "path": "title", "levenshtein_distance": 5}}},
+        {"search_req": {"and": {"queries": [leaf, {"or": {"queries": [
+            {"search": {"terms": ["w2ccc"], "path": "title"}},
+            {"search": {"terms": ["w3dddd"], "path": "title", "levenshtein_distance": 1}},
+            {"search": {"terms": ["w10"], "path": "title"}}]}}]}}},
+        {"search_req": {"or": {"queries": [leaf, {"and": {"queries": [
+            {"search": {"terms": ["w2ccc"], "path": "title"}},
+            {"search": {"terms": ["w1b"], "path": "title", "starts_with": True}}]}}]}}},
+    ]
     reqs = [Request.from_dict(d) for d in dicts]
-    for batch in (reqs, reqs[3:4]):  # batched sweep, then the single-query sweep
+    reqs += [search_query(on_card, SearchQueryGeneratorParameters(search_term=q))
+             for q in ("w1ab*", "w2ccc AND w1bb*", "w10 OR w1bb AND w2ccc")]
+    for batch in (reqs, reqs[3:4], reqs[5:6]):  # batched sweeps, then single queries
         for a, b in zip(search_batch(batch, on_card), search_batch(batch, on_cpu)):
             assert a.num_hits == b.num_hits
             assert [(h.id, h.score) for h in a.data] == [(h.id, h.score) for h in b.data]
+    assert on_card.path_counts["batched_tree_deep"] > 0

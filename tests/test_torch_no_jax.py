@@ -1,6 +1,7 @@
 """The port runs where JAX is absent: it never imports ``jax`` nor runs
-``veloci_tpu/__init__.py``, reaches the reference's host layers only through
-``veloci_tpu_torch._host``, and refuses a CUDA device it does not have. The
+``veloci_tpu/__init__.py``, reaches the reference's host layers (the query
+generator included) only through ``veloci_tpu_torch._host``, and refuses a
+CUDA device it does not have. The
 standalone ``chip_smoke.py`` refuses to run without a card or without the
 repository around it."""
 
@@ -26,7 +27,8 @@ if sys.argv[1] == "block":
 import tempfile
 import numpy as np
 import torch
-from veloci_tpu_torch import Request, _host, load_index, search_batch
+from veloci_tpu_torch import Request, SearchQueryGeneratorParameters, _host, load_index, search_batch
+from veloci_tpu_torch import search_query
 
 rng = np.random.default_rng(3)
 vocab = ["hello", "help", "hells", "world", "word", "Hello", "x" * 40]
@@ -45,6 +47,10 @@ with tempfile.TemporaryDirectory() as d:
 res = search_batch([Request.from_dict({"search_req": {"search": dict(terms=[t], path="title", **kw)}})
                     for t, kw in [("hello", {}), ("helo", {"levenshtein_distance": 1}),
                                   ("wrd", {"levenshtein_distance": 2})]], index)
+assert all(r.num_hits > 0 and r.data for r in res), res
+reqs = [search_query(index, SearchQueryGeneratorParameters(search_term=q))
+        for q in ("hel*", "hello AND wor*", "word OR hello AND help")]
+res = search_batch(reqs, index)
 assert all(r.num_hits > 0 and r.data for r in res), res
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (m == "jax" or m.startswith("jax."))]
 assert not loaded, loaded

@@ -1,18 +1,26 @@
-"""Banded Levenshtein dictionary sweep: CUDA kernel wrappers and plain version.
+"""Levenshtein dictionary sweeps: CUDA kernel wrappers and plain versions.
 
-Counterpart of the Pallas kernels ``levenshtein_sweep_pallas_banded_batch``
-and ``levenshtein_sweep_pallas_banded`` (``veloci_tpu/ops/pallas_levenshtein.py``).
-Both entry points run one hand-written CUDA kernel,
-``csrc/banded_levenshtein.cu``, whose note says what bounds it.
+Counterpart of the three Pallas kernels in
+``veloci_tpu/ops/pallas_levenshtein.py``:
 
-For every (query, term) pair the sweep gives the Levenshtein distance
-restricted to the diagonal band ``|i - j| <= band`` (``BIG`` outside it),
-the minimum such distance over term prefixes, and whether the term starts
-with the query. Rows of length 0 give ``BIG``. A distance ``<= band`` is
-the true distance, so the matches at any ``d <= band`` are exact.
+* ``levenshtein_sweep_banded_batch`` and ``levenshtein_sweep_banded``
+  (``levenshtein_sweep_pallas_banded_batch`` and
+  ``levenshtein_sweep_pallas_banded``) run one hand-written CUDA kernel,
+  ``csrc/banded_levenshtein.cu``. For every (query, term) pair it gives the
+  Levenshtein distance restricted to the diagonal band ``|i - j| <= band``
+  (``BIG`` outside it), the minimum such distance over term prefixes, and
+  whether the term starts with the query. A distance ``<= band`` is the
+  true distance, so the matches at any ``d <= band`` are exact.
+* ``levenshtein_sweep_full_batch`` (``levenshtein_sweep_pallas``, and the
+  XLA sweep ``levenshtein.levenshtein_sweep`` that the JAX package runs in
+  its place) runs ``csrc/full_levenshtein.cu``: the whole DP, so both
+  distances are true at any size. ``starts_with`` leaves and distances
+  above 4 need it.
 
-A tensor on the CPU takes the plain PyTorch version; a CUDA tensor launches
-the kernel or raises. Each wrapper counts its launches in ``.launches``.
+Rows of length 0 give ``BIG`` and ``is_prefix`` false. Each kernel's source
+note says what bounds it. A tensor on the CPU takes the plain PyTorch
+version; a CUDA tensor launches the kernel or raises. Each wrapper counts
+its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -28,16 +36,22 @@ __all__ = [
     "levenshtein_sweep_banded_batch",
     "levenshtein_sweep_banded",
     "levenshtein_sweep_banded_batch_plain",
+    "levenshtein_sweep_full_batch",
+    "levenshtein_sweep_full_batch_plain",
 ]
 
 L = MAX_QUERY_CHARS  # term width == query width
-SOURCE = "banded_levenshtein.cu"
-# plain version: bound the [Q, N] intermediates (about 20 live int32 planes)
+# plain versions: bound the [Q, N] intermediates (about 20 live int32 planes
+# for the banded DP, 33 for the full one)
 _PLAIN_CHUNK_ELEMS = 1 << 24
+_PLAIN_CHUNK_ELEMS_FULL = 1 << 23
+BANDED = "banded_levenshtein.cu"
+FULL = "full_levenshtein.cu"
 
 
 def _check(chars_t, term_lens, queries, query_lens, band) -> None:
-    if band not in (2, 4):
+    """``band`` 2 or 4 for the banded sweep, None for the full one."""
+    if band not in (2, 4, None):
         raise ValueError(f"band must be 2 or 4, got {band}")
     dev = chars_t.device
     expect = (
@@ -105,57 +119,107 @@ def _plain_chunk(chars, lens, qs, ql_raw, band):
         ok = (pj >= 0) & (pj <= lens[None, :])
         prefix = torch.minimum(prefix, torch.where(ok, rows[oi], big))
     valid = (lens > 0)[None, :]
-    dist = torch.where(valid, dist, big)
-    prefix = torch.where(valid, prefix, big)
-    is_prefix = valid & (lens[None, :] >= ql_raw[:, None])
+    return torch.where(valid, dist, big), torch.where(valid, prefix, big), _is_prefix(chars, lens, qs, ql_raw)
+
+
+def _plain_full_chunk(chars, lens, qs, ql_raw):
+    """Full DP for a chunk of queries, vectorised over (query, term) with the
+    33 columns as separate planes, each row updated in place left to right
+    as the kernel does. Columns past the longest term are never computed:
+    no column feeds one before it."""
+    qc_n, n = qs.shape[0], chars.shape[1]
+    qlen = ql_raw.clamp(max=L)
+    max_len = int(lens.max())
+    rows = [torch.full((qc_n, n), j, dtype=torch.int32, device=chars.device) for j in range(max_len + 1)]
+    for i in range(1, int(qlen.max()) + 1):
+        active = (qlen >= i)[:, None]
+        qc = qs[:, i - 1 : i]
+        diag = rows[0]
+        rows[0] = torch.where(active, torch.full_like(diag, i), diag)
+        for j in range(1, max_len + 1):
+            up = rows[j]
+            cand = torch.minimum(up + 1, diag + (chars[j - 1][None, :] != qc).to(torch.int32))
+            rows[j] = torch.where(active, torch.minimum(rows[j - 1] + 1, cand), up)
+            diag = up
+
+    lens_b = lens[None, :]
+    big = torch.full((qc_n, n), BIG, dtype=torch.int32, device=chars.device)
+    dist, prefix = big, big
+    for j, row in enumerate(rows):
+        dist = torch.where(lens_b == j, row, dist)
+        prefix = torch.where(lens_b >= j, torch.minimum(prefix, row), prefix)
+    valid = lens_b > 0
+    return torch.where(valid, dist, big), torch.where(valid, prefix, big), _is_prefix(chars, lens, qs, ql_raw)
+
+
+def _is_prefix(chars, lens, qs, ql_raw):
+    """[Qc, N]: the term is not empty and starts with the query."""
+    is_prefix = (lens[None, :] > 0) & (lens[None, :] >= ql_raw[:, None])
     for j in range(L):
         is_prefix &= (chars[j][None, :] == qs[:, j : j + 1]) | (ql_raw[:, None] <= j)
-    return dist, prefix, is_prefix
+    return is_prefix
 
 
-def levenshtein_sweep_banded_batch_plain(chars_t, term_lens, queries, query_lens, band=4):
-    """Plain PyTorch version of the batched sweep, on any device: a loop over
-    query characters, vectorised over (query, term, band cell)."""
-    _check(chars_t, term_lens, queries, query_lens, band)
+def _plain(chunk, chunk_elems, chars_t, term_lens, queries, query_lens, *args):
+    """Run ``chunk`` over slices of the queries of at most ``chunk_elems``
+    (query, term) pairs each, and concatenate."""
     q, n = queries.shape[0], chars_t.shape[1]
+    if q == 0 or n == 0:
+        e = torch.full((q, n), BIG, dtype=torch.int32, device=chars_t.device)
+        return e, e.clone(), torch.zeros((q, n), dtype=torch.bool, device=chars_t.device)
     chars = _u16_to_i32(chars_t)
     qs = _u16_to_i32(queries)
-    outs = []
-    step = max(1, _PLAIN_CHUNK_ELEMS // max(n, 1))
-    for lo in range(0, q, step):
-        outs.append(_plain_chunk(chars, term_lens, qs[lo : lo + step], query_lens[lo : lo + step], band))
-    if not outs:
-        e = torch.empty((0, n), dtype=torch.int32, device=chars_t.device)
-        return e, e.clone(), e.to(torch.bool)
+    step = max(1, chunk_elems // n)
+    outs = [
+        chunk(chars, term_lens, qs[lo : lo + step], query_lens[lo : lo + step], *args)
+        for lo in range(0, q, step)
+    ]
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _launch(chars_t, term_lens, queries, query_lens, band):
+def levenshtein_sweep_banded_batch_plain(chars_t, term_lens, queries, query_lens, band=4):
+    """Plain PyTorch version of the batched banded sweep, on any device: a
+    loop over query characters, vectorised over (query, term, band cell)."""
+    _check(chars_t, term_lens, queries, query_lens, band)
+    return _plain(_plain_chunk, _PLAIN_CHUNK_ELEMS, chars_t, term_lens, queries, query_lens, band)
+
+
+def levenshtein_sweep_full_batch_plain(chars_t, term_lens, queries, query_lens):
+    """Plain PyTorch version of the full-width sweep, on any device: a loop
+    over query characters and term columns, vectorised over (query, term)."""
+    _check(chars_t, term_lens, queries, query_lens, None)
+    return _plain(_plain_full_chunk, _PLAIN_CHUNK_ELEMS_FULL, chars_t, term_lens, queries, query_lens)
+
+
+def _launch(source, symbol, chars_t, term_lens, queries, query_lens, *extra):
+    """Launch ``symbol`` of ``csrc/<source>`` on the current stream. Its C
+    signature is (chars_t, term_lens, n, queries, query_lens, q, *extra ints,
+    dist, prefix_dist, is_prefix, stream) and it returns the launch's error."""
     q, n = queries.shape[0], chars_t.shape[1]
     dev = chars_t.device
     dist = torch.empty((q, n), dtype=torch.int32, device=dev)
     prefix = torch.empty((q, n), dtype=torch.int32, device=dev)
     is_prefix = torch.empty((q, n), dtype=torch.bool, device=dev)
-    lib = _build.load(SOURCE)
-    fn = lib.veloci_banded_sweep
+    lib = _build.load(source)
+    fn = getattr(lib, symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, *(ctypes.c_int for _ in extra),
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             chars_t.data_ptr(), term_lens.data_ptr(), n,
-            queries.data_ptr(), query_lens.data_ptr(), q, band,
+            queries.data_ptr(), query_lens.data_ptr(), q, *extra,
             dist.data_ptr(), prefix.data_ptr(), is_prefix.data_ptr(), stream,
         )
     if err != 0:
         lib.veloci_cuda_error_string.restype = ctypes.c_char_p
         lib.veloci_cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.veloci_cuda_error_string(err).decode()
-        raise RuntimeError(f"banded Levenshtein kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"{symbol} kernel launch failed: {msg} ({err})")
     return dist, prefix, is_prefix
 
 
@@ -171,7 +235,7 @@ def levenshtein_sweep_banded_batch(chars_t, term_lens, queries, query_lens, band
         return levenshtein_sweep_banded_batch_plain(chars_t, term_lens, queries, query_lens, band)
     if chars_t.device.type != "cuda":
         raise ValueError(f"no banded sweep for device {chars_t.device}")
-    out = _launch(chars_t, term_lens, queries, query_lens, band)
+    out = _launch(BANDED, "veloci_banded_sweep", chars_t, term_lens, queries, query_lens, band)
     if queries.shape[0] and chars_t.shape[1]:
         levenshtein_sweep_banded_batch.launches += 1
     return out
@@ -189,7 +253,7 @@ def levenshtein_sweep_banded(chars_t, term_lens, query, query_len, band=4):
     if chars_t.device.type == "cpu":
         out = levenshtein_sweep_banded_batch_plain(chars_t, term_lens, queries, query_lens, band)
     elif chars_t.device.type == "cuda":
-        out = _launch(chars_t, term_lens, queries, query_lens, band)
+        out = _launch(BANDED, "veloci_banded_sweep", chars_t, term_lens, queries, query_lens, band)
         if chars_t.shape[1]:
             levenshtein_sweep_banded.launches += 1
     else:
@@ -198,3 +262,24 @@ def levenshtein_sweep_banded(chars_t, term_lens, query, query_len, band=4):
 
 
 levenshtein_sweep_banded.launches = 0
+
+
+def levenshtein_sweep_full_batch(chars_t, term_lens, queries, query_lens):
+    """Full-width sweep: ``chars_t [32, N] uint16``, ``term_lens [N] int32``
+    (each in [0, 32]), ``queries [Q, 32] uint16``, ``query_lens [Q] int32`` ->
+    ``(dist [Q, N] int32, prefix_dist [Q, N] int32, is_prefix [Q, N] bool)``.
+
+    ``dist`` is the true distance, ``prefix_dist`` its minimum over the
+    term's prefixes. One kernel launch covers the whole batch."""
+    _check(chars_t, term_lens, queries, query_lens, None)
+    if chars_t.device.type == "cpu":
+        return levenshtein_sweep_full_batch_plain(chars_t, term_lens, queries, query_lens)
+    if chars_t.device.type != "cuda":
+        raise ValueError(f"no full-width sweep for device {chars_t.device}")
+    out = _launch(FULL, "veloci_full_sweep", chars_t, term_lens, queries, query_lens)
+    if queries.shape[0] and chars_t.shape[1]:
+        levenshtein_sweep_full_batch.launches += 1
+    return out
+
+
+levenshtein_sweep_full_batch.launches = 0

@@ -1,8 +1,9 @@
-"""Posting-run reads: one exact term's run -> top-k documents.
+"""Posting-run reads: one exact term's run -> top-k documents, and the
+ragged gather every tree route reads its rows with.
 
 Counterpart of ``_single_term_impl`` / ``batched_single_term_topk``
-(``veloci_tpu/ops/search_step.py:44-118``) and of the gather semantics of
-``_gather_postings`` (``:121-273``). A term's postings are one contiguous
+(``veloci_tpu/ops/search_step.py:44-118``) and of ``_gather_postings`` /
+``_gather_postings_sliced`` (``:121-337``). A term's postings are one contiguous
 run of packed ``(anchor, f32 score bits)`` int32 rows in the combined CSR,
 sorted by anchor with one row per anchor. Run lengths are known on the
 host, so the reads need no capacity buckets and no tail padding.
@@ -18,12 +19,15 @@ from .topk import segmented_topk
 __all__ = ["gather_runs", "batched_single_term_topk"]
 
 
-def gather_runs(offsets, packed, term_ids, term_scores, counts: np.ndarray):
+def gather_runs(offsets, packed, term_ids, term_scores, counts: np.ndarray, *per_term):
     """Ragged CSR gather of the runs of ``term_ids`` ([T] int64 on the device),
     concatenated in term order. ``counts`` are the run lengths on the host.
 
-    Returns ``(term_of_row [M], anchors [M] int64, scores [M] f32)`` with
-    each row's score = run score x its term's score, in f32."""
+    Returns ``(term_of_row [M], anchors [M] int64, scores [M] f32, *rows)``
+    with each row's score = run score x its term's score, in f32, and for
+    each extra ``[T]`` tensor in ``per_term`` (a tree's slot keys, a deep
+    tree's AND gates) its value at each row's term: the counterpart of
+    ``term_slots`` / ``term_ngs`` in ``_gather_postings``."""
     dev = packed.device
     total = int(counts.sum())
     cnt = torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int64)).to(dev)
@@ -37,7 +41,7 @@ def gather_runs(offsets, packed, term_ids, term_scores, counts: np.ndarray):
     rows = packed[src]
     anchors = rows[:, 0].to(torch.int64)
     scores = rows[:, 1].contiguous().view(torch.float32) * term_scores[term_of_row]
-    return term_of_row, anchors, scores
+    return (term_of_row, anchors, scores, *(t[term_of_row] for t in per_term))
 
 
 def batched_single_term_topk(offsets, packed, term_ids, term_scores, counts, k):

@@ -1,10 +1,31 @@
-"""Single-slot tree evaluation: one leaf resolved to several terms.
+"""Tree evaluation over gathered posting rows: single-slot, two-level, deep.
 
-Counterpart of ``tree_candidates_single`` and ``candidates_topk``
-(``veloci_tpu/ops/tree_step.py:123-150, 319``) inside ``batched_tree_topk``.
-All rows of a query belong to the same leaf, so the tree reduces to each
-anchor's maximum over the leaf's terms (the reference's resolve sort +
-dedup, search_field.rs:451-465), gated at ``score >= 1e-5``.
+Counterpart of ``tree_candidates_single``, ``tree_candidates``,
+``tree_candidates_deep`` and ``candidates_topk`` inside ``batched_tree_topk``
+(``veloci_tpu/ops/tree_step.py:123-328, 372``). The reference sorts each
+query's rows by (anchor desc, slot desc, score desc) and reads the tree off
+that order with segmented scans:
+
+* per (anchor, slot): the maximum score -- one leaf's term variants dedup
+  to their best (search_field.rs:451-465);
+* per (anchor, group): the sum of slot maxima x distinct^2, where distinct
+  counts the slots that reach ``1e-5`` -- union (set_op.rs:87-220);
+* per anchor: the sum over groups, kept when every group scored -- AND
+  (set_op.rs:368-448); a flat OR is the one-group case.
+
+The deep form (an OR of ANDs of ORs) adds the subtree level, gated on its
+own group count, the maximum over subtrees that share their leftmost term,
+and a last union over those terms.
+
+Here one sort serves a whole batch: every row gets an int64 key
+(query, anchor desc, slot key), ``torch.unique`` sorts and dedups the keys
+and a scatter max gives each (query, anchor, slot) its best score. Each
+level of the tree is then a run of equal ``key >> shift``: the host packs
+the slot key with one bit field per level, outermost highest, each field
+counting DOWN, so ascending keys visit the slots in the reference's slot-
+descending order. A union sums its values left to right in that order: for
+one or two values that is the reference's f32 sum bit for bit; for three
+or more the reference's associative scan may round differently.
 """
 
 from __future__ import annotations
@@ -15,7 +36,12 @@ import torch
 from .search_step import gather_runs
 from .topk import score_desc_key, segmented_topk
 
-__all__ = ["batched_tree_topk_single_slot"]
+__all__ = [
+    "batched_tree_topk_single_slot",
+    "batched_tree_topk",
+    "tree_candidates",
+    "tree_candidates_deep",
+]
 
 _EPS = float(np.float32(1e-5))  # the reference's hit gate, as an f32 value
 _I31 = (1 << 31) - 1
@@ -25,15 +51,15 @@ def batched_tree_topk_single_slot(
     offsets, packed, term_ids, term_scores, term_query, counts, num_queries: int,
     num_docs: int, k,
 ):
-    """Many single-leaf queries, each over its matched terms.
+    """Many single-slot queries (one leaf's terms, or one term string over
+    several fields), each over its matched terms: ``tree_candidates_single``.
 
     ``term_ids``/``term_scores`` [T] on the device, ``term_query`` [T] the
     query of each term (on the device), ``counts`` [T] run lengths on the
     host, ``k [num_queries]``. Returns flat ``(query, anchors, scores)`` of
     each query's top-k candidates and ``num_hits [num_queries]``, the number
     of anchors whose maximum passes the gate."""
-    t_of_row, a, s = gather_runs(offsets, packed, term_ids, term_scores, counts)
-    seg = term_query[t_of_row]
+    _t, a, s, seg = gather_runs(offsets, packed, term_ids, term_scores, counts, term_query)
     # rows sorted by (query, anchor desc, score desc): each anchor's first
     # row in its query holds its maximum
     order = torch.argsort(((_I31 - a) << 32) | score_desc_key(s), stable=True)
@@ -45,3 +71,141 @@ def batched_tree_topk_single_slot(
     seg, a, s = seg[cand], a[cand], s[cand]
     num_hits = torch.bincount(seg, minlength=num_queries)
     return segmented_topk(seg, s, a, num_queries, k), num_hits
+
+
+def _anchor_bits(num_docs: int) -> int:
+    return max(1, (num_docs - 1).bit_length())
+
+
+def _slot_entries(seg, a, s, slot, num_docs: int, slot_bits: int, *per_row):
+    """Rows -> one entry per (query, anchor, slot), ascending by key
+    (query, anchor desc, slot key), with its best score and, for each
+    ``per_row`` tensor (constant within an entry), its value."""
+    ab = _anchor_bits(num_docs)
+    if seg.numel() and int(seg.max()).bit_length() + ab + slot_bits > 63:
+        raise ValueError("query, anchor and slot keys do not fit an int64 key")
+    keep = (a >= 0) & (a < num_docs)
+    seg, a, s, slot = seg[keep], a[keep], s[keep], slot[keep]
+    key = (seg << (ab + slot_bits)) | ((num_docs - 1 - a) << slot_bits) | slot
+    ekey, inv = torch.unique(key, sorted=True, return_inverse=True)
+    best = torch.full(ekey.shape, -torch.inf, dtype=s.dtype, device=s.device)
+    best.scatter_reduce_(0, inv, s, "amax")
+    extra = [torch.zeros(ekey.shape, dtype=t.dtype, device=t.device).scatter_(0, inv, t[keep])
+             for t in per_row]
+    return ekey, best, extra
+
+
+def _runs(keys):
+    """Runs of equal consecutive ``keys``: (run keys, run of each key, run lengths)."""
+    return torch.unique_consecutive(keys, return_inverse=True, return_counts=True)
+
+
+def _firsts(values, counts):
+    return values[torch.cumsum(counts, 0) - counts]
+
+
+def _ordered_sum(values, counts):
+    """Per run of ``counts`` consecutive ``values``, their f32 sum taken
+    left to right (deterministic on every device)."""
+    if counts.numel() == 0:
+        return values[:0]
+    starts = torch.cumsum(counts, 0) - counts
+    acc = values[starts]
+    for r in range(1, int(counts.max())):
+        live = counts > r
+        acc = torch.where(live, acc + values[torch.where(live, starts + r, starts)], acc)
+    return acc
+
+
+def _count(flags, run_of, num_runs):
+    """Per run, how many ``flags`` are set, as f32 (the reference's counts)."""
+    out = torch.zeros(num_runs, dtype=torch.int64, device=flags.device)
+    return out.index_add_(0, run_of, flags.to(torch.int64)).to(torch.float32)
+
+
+def _union(values, run_of, counts):
+    """Sum of ``values`` x distinct^2 per run, distinct = values >= 1e-5."""
+    total = _ordered_sum(values, counts)
+    cnt = _count(values >= _EPS, run_of, counts.numel())
+    return total, cnt
+
+
+def _candidates(akey, final, num_docs):
+    """Anchor keys + scores -> (query, anchor, score) where the score > 0."""
+    ab = _anchor_bits(num_docs)
+    hit = final > 0
+    akey, final = akey[hit], final[hit]
+    return akey >> ab, (num_docs - 1) - (akey & ((1 << ab) - 1)), final
+
+
+def tree_candidates(seg, a, s, slot, num_groups, num_docs: int, slot_bits: int, group_shift: int):
+    """Two-level tree (flat OR, flat AND, AND of ORs) over gathered rows.
+
+    ``seg [M]`` query of each row, ``a [M]`` int64 anchors, ``s [M]`` f32
+    scores, ``slot [M]`` int64 slot keys below ``2**slot_bits`` whose bits
+    from ``group_shift`` up name the group; ``num_groups [Q]`` the groups
+    each query's AND needs. Returns ``(query, anchor, score)`` of every
+    anchor with a score > 0, ordered by (query, anchor desc)."""
+    ekey, slot_max, _ = _slot_entries(seg, a, s, slot, num_docs, slot_bits)
+    gkey, g_of, g_len = _runs(ekey >> group_shift)
+    sum2, cnt2 = _union(slot_max, g_of, g_len)
+    group_score = torch.where(cnt2 > 0, sum2 * cnt2 * cnt2, 0.0)
+    akey, a_of, a_len = _runs(gkey >> (slot_bits - group_shift))
+    sum3 = _ordered_sum(group_score, a_len)
+    cnt3 = _count(group_score > 0, a_of, a_len.numel())
+    need = num_groups[akey >> _anchor_bits(num_docs)].to(torch.float32)
+    final = torch.where(cnt3 >= need, sum3, 0.0)
+    return _candidates(akey, final, num_docs)
+
+
+def tree_candidates_deep(seg, a, s, slot, ng, num_docs: int, slot_bits: int, shifts):
+    """OR of (leaf | AND of (leaf | OR of leaves)) over gathered rows.
+
+    As :func:`tree_candidates`, with ``shifts = (term, subtree, group)``:
+    the slot key's bits from each shift up name the row's leftmost-term
+    slot, its subtree and its group; ``ng [M]`` is each row's subtree group
+    count (its AND gate)."""
+    term_shift, sub_shift, group_shift = shifts
+    ekey, slot_max, (ng_e,) = _slot_entries(seg, a, s, slot, num_docs, slot_bits, ng)
+    # stage 2: union within each leaf-OR group
+    gkey, g_of, g_len = _runs(ekey >> group_shift)
+    sum2, cnt2 = _union(slot_max, g_of, g_len)
+    group_score = torch.where(cnt2 > 0, sum2 * cnt2 * cnt2, 0.0)
+    ng_g = _firsts(ng_e, g_len)
+    # stage 3: AND over a subtree's groups, gated on all of them
+    ukey, u_of, u_len = _runs(gkey >> (sub_shift - group_shift))
+    sum3 = _ordered_sum(group_score, u_len)
+    cnt3 = _count(group_score > 0, u_of, u_len.numel())
+    sub_score = torch.where(cnt3 >= _firsts(ng_g, u_len).to(torch.float32), sum3, 0.0)
+    # stage 4: max over subtrees with the same leftmost term (identity 0)
+    tkey, t_of, t_len = _runs(ukey >> (term_shift - sub_shift))
+    term_max = torch.zeros(t_len.numel(), dtype=sub_score.dtype, device=sub_score.device)
+    term_max.scatter_reduce_(0, t_of, sub_score, "amax")
+    # stage 5: union over the distinct terms of each anchor
+    akey, a_of, a_len = _runs(tkey >> (slot_bits - term_shift))
+    sum5, cnt5 = _union(term_max, a_of, a_len)
+    return _candidates(akey, sum5 * cnt5 * cnt5, num_docs)
+
+
+def batched_tree_topk(
+    offsets, packed, term_ids, term_scores, term_query, term_slots, counts,
+    num_queries: int, num_docs: int, k, *, slot_bits: int, shifts, num_groups=None,
+    term_ngs=None,
+):
+    """Many multi-slot tree queries, one gather and one sort for the batch.
+
+    Per term on the device: ``term_ids``, ``term_scores``, ``term_query``,
+    ``term_slots`` (slot keys, see :func:`tree_candidates`) and, for deep
+    trees, ``term_ngs``; ``counts`` [T] run lengths on the host. Two-level
+    trees pass ``num_groups [num_queries]`` and ``shifts = (group_shift,)``,
+    deep trees ``term_ngs`` and ``shifts = (term, subtree, group)``.
+    Returns flat ``(query, anchors, scores)`` of each query's top-k and
+    ``num_hits [num_queries]``, the anchors with a score > 0."""
+    per_term = (term_query, term_slots) + (() if term_ngs is None else (term_ngs,))
+    _t, a, s, seg, slot, *ng = gather_runs(offsets, packed, term_ids, term_scores, counts, *per_term)
+    if term_ngs is None:
+        seg, a, final = tree_candidates(seg, a, s, slot, num_groups, num_docs, slot_bits, shifts[0])
+    else:
+        seg, a, final = tree_candidates_deep(seg, a, s, slot, ng[0], num_docs, slot_bits, shifts)
+    num_hits = torch.bincount(seg, minlength=num_queries)
+    return segmented_topk(seg, final, a, num_queries, k), num_hits

@@ -1,9 +1,11 @@
-"""Field-level term matching for exact and fuzzy leaves.
+"""Field-level term matching for exact, fuzzy and ``starts_with`` leaves.
 
 Counterpart of ``veloci_tpu/search/field_search.py`` (``:49-117`` scoring and
-match post-processing, ``:120-262`` the batched fuzzy prefetch, ``:404-547``
-``get_term_ids_in_field``), for the slice's leaves: exact terms and fuzzy
-terms at distance 1-4, without ``starts_with``, regex or token-value boosts.
+match post-processing, ``:120-401`` the batched fuzzy prefetch and the
+device match, ``:404-547`` ``get_term_ids_in_field``), for leaves of one
+term without regex or token-value boosts: exact terms, prefix ranges
+(``starts_with`` at distance 0), and fuzzy terms at any distance, with or
+without ``starts_with``.
 """
 
 from __future__ import annotations
@@ -18,9 +20,15 @@ from ..ops.levenshtein import (
     MAX_QUERY_CHARS,
     encode_query,
     levenshtein_distance_host,
+    levenshtein_distances_host,
+    levenshtein_rows,
     select_matches,
 )
-from ..ops.levenshtein_sweep import levenshtein_sweep_banded, levenshtein_sweep_banded_batch
+from ..ops.levenshtein_sweep import (
+    levenshtein_sweep_banded,
+    levenshtein_sweep_banded_batch,
+    levenshtein_sweep_full_batch,
+)
 
 __all__ = [
     "get_default_score_for_distance",
@@ -31,7 +39,7 @@ __all__ = [
 ]
 
 _F32 = np.float32
-MAX_SWEEP_DISTANCE = 4  # the widest band the sweep kernel has
+MAX_BAND = 4  # the widest band of the banded sweep kernel
 
 
 def get_default_score_for_distance(distance, prefix_matches):
@@ -56,80 +64,162 @@ def clamped_distance(part) -> int:
     return min(d, max(len(part.terms[0].lower()) - 1, 0))
 
 
-def _long_term_extras(dictionary, lower_term, distance):
-    """Host matches among terms longer than the sweep matrix (:69-94): only
-    a query within ``distance`` of the matrix width can reach them."""
-    if len(lower_term) + distance <= indices.MAX_TERM_CHARS:
-        return [], [], []
-    extra_ids, extra_d, extra_p = [], [], []
-    for tid in dictionary.long_term_ids():
-        lo = dictionary.terms[tid].lower()
-        d = levenshtein_distance_host(lower_term, lo)
-        if d <= distance:
-            extra_ids.append(tid)
-            extra_d.append(d)
-            extra_p.append(lo.startswith(lower_term))
-    return extra_ids, extra_d, extra_p
+def _long_matches(long, items):
+    """Per item ``(lower_term, distance, starts_with)``, its matches among
+    the field's terms longer than the sweep matrix (:69-94): ``(term ids,
+    distances, is_prefix)``, matched on the prefix distance for
+    ``starts_with`` and on the distance otherwise.
+
+    Candidates first. lev(a, b) >= |len(a) - len(b)|, so an item reaches a
+    long term only if the term has at most ``len + distance`` chars, unless
+    it matches term prefixes. A prefix within ``distance`` has at most
+    ``len + distance`` chars, so a ``starts_with`` item with ``len +
+    distance <= 32`` takes the rows whose first 32 chars the full-width
+    sweep puts within range, a longer one every row. Then every candidate's
+    distances, over its whole length, decide."""
+    n = len(long.ids)
+    none = (np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, bool))
+    if n == 0 or not items:
+        return [none] * len(items)
+    swept = [it for it in items if it[2] and len(it[0]) + it[1] <= indices.MAX_TERM_CHARS]
+    swept = dict(zip(swept, (rows for rows, _d, _p in _select(long.prefixes, swept)))) if swept else {}
+    cand = []
+    for it in items:
+        lower_term, distance, starts_with = it
+        if it in swept:
+            cand.append(swept[it])
+        elif starts_with:
+            cand.append(np.arange(n, dtype=np.int64))
+        elif len(lower_term) + distance > indices.MAX_TERM_CHARS:
+            cand.append(np.flatnonzero(long.host_lengths <= len(lower_term) + distance))
+        else:
+            cand.append(np.empty(0, np.int64))
+    counts = np.array([len(c) for c in cand])
+    if not counts.sum():
+        return [none] * len(items)
+    queries = np.full((len(items), MAX_QUERY_CHARS), -1, dtype=np.int32)
+    qlens = np.zeros(len(items), dtype=np.int32)
+    for k, (lower_term, _d, _sw) in enumerate(items):
+        cps = np.frombuffer(lower_term.encode("utf-32-le"), dtype=np.int32)
+        queries[k, : len(cps)], qlens[k] = cps, len(cps)
+    dev = long.codes.device
+
+    def up(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+    rows = np.concatenate(cand).astype(np.int64)
+    query_of = np.repeat(np.arange(len(items)), counts)
+    dist, prefix, is_prefix = levenshtein_rows(
+        long.codes, long.lengths, up(queries), up(qlens), up(rows), up(query_of)
+    )
+    sw = up(np.array([it[2] for it in items]))[up(query_of)]
+    limit = up(np.array([it[1] for it in items], dtype=np.int32))[up(query_of)]
+    keep = (torch.where(sw, prefix, dist) <= limit).cpu().numpy()
+    dist, is_prefix = dist.cpu().numpy().astype(np.int64), is_prefix.cpu().numpy()
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    return [
+        (long.ids[rows[a:b][keep[a:b]]], dist[a:b][keep[a:b]], is_prefix[a:b][keep[a:b]])
+        for a, b in zip(bounds[:-1], bounds[1:])
+    ]
 
 
-def _postprocess_matches(dictionary, ids, dists, prefixes, lower_term, distance):
-    """Drop pad rows, append the long-term host matches, sort by term id."""
+def _merge_matches(dictionary, swept, extra):
+    """The sweep's matches (pad rows dropped) and the long-term matches,
+    sorted by term id."""
+    ids, dists, prefixes = swept
     keep = (ids >= 0) & (ids < len(dictionary))
-    matched, dists, prefixes = ids[keep], dists[keep].astype(np.int64), prefixes[keep]
-    if dictionary.long_term_ids():
-        extra_ids, extra_d, extra_p = _long_term_extras(dictionary, lower_term, distance)
-        if extra_ids:
-            matched = np.concatenate([matched, np.asarray(extra_ids, np.int64)])
-            dists = np.concatenate([dists, np.asarray(extra_d, np.int64)])
-            prefixes = np.concatenate([prefixes, np.asarray(extra_p, bool)])
+    matched = np.concatenate([ids[keep], extra[0]])
+    dists = np.concatenate([dists[keep].astype(np.int64), extra[1]])
+    prefixes = np.concatenate([prefixes[keep], extra[2]])
     order = np.argsort(matched, kind="stable")
     return matched[order], dists[order], prefixes[order]
 
 
-def prefetch_fuzzy_matches(index, specs) -> Dict[Tuple[str, str, int], tuple]:
-    """Every match of every ``(field, lower_term, distance)`` spec, from ONE
-    sweep launch per field (the single-query entry point when a field has
-    one spec). Returns ``{spec: (term_ids, distances, is_prefix)}``, term ids
-    ascending. Specs longer than 31 chars are left to the host loop of
+def _select(sweep, items):
+    """One launch over ``sweep`` for ``items`` [(lower_term, distance,
+    starts_with)], matched on the prefix distance for ``starts_with`` and
+    on the distance otherwise -> per item (sweep ids, distances, is_prefix)."""
+    dev = sweep.chars_t.device
+    full = any(sw or d > MAX_BAND for _t, d, sw in items)
+    dist, prefix_dist, ispref = _sweep(sweep, items, full)
+    distances = torch.tensor([d for _t, d, _sw in items], dtype=torch.int32, device=dev)
+    crit = dist
+    if any(sw for _t, _d, sw in items):
+        sw = torch.tensor([sw for _t, _d, sw in items], dtype=torch.bool, device=dev)
+        crit = torch.where(sw[:, None], prefix_dist, dist)
+    rows, ids, dists, prefs = (
+        t.cpu().numpy()
+        for t in select_matches(dist, ispref, crit, distances, remap=sweep.sweep_ids)
+    )
+    bounds = np.searchsorted(rows, np.arange(len(items) + 1))
+    return [
+        (ids[bounds[row] : bounds[row + 1]], dists[bounds[row] : bounds[row + 1]],
+         prefs[bounds[row] : bounds[row + 1]])
+        for row in range(len(items))
+    ]
+
+
+def _sweep(sweep, items, full: bool):
+    """One sweep launch over ``items`` [(lower_term, distance, starts_with)]
+    -> (dist, prefix_dist, is_prefix), each [len(items), M]. The banded
+    kernel takes its single-query entry point when there is one item."""
+    dev = sweep.chars_t.device
+    queries = np.zeros((len(items), MAX_QUERY_CHARS), dtype=np.uint16)
+    qlens = np.zeros(len(items), dtype=np.int32)
+    for row, (lower_term, _d, _sw) in enumerate(items):
+        queries[row], qlens[row] = encode_query(lower_term)
+    q_t = torch.from_numpy(queries).to(dev)
+    ql_t = torch.from_numpy(qlens).to(dev)
+    if full:
+        return levenshtein_sweep_full_batch(sweep.chars_t, sweep.lengths, q_t, ql_t)
+    band = 2 if max(d for _t, d, _sw in items) <= 2 else 4
+    if len(items) == 1:
+        out = levenshtein_sweep_banded(sweep.chars_t, sweep.lengths, q_t[0], ql_t, band=band)
+        return tuple(o[None] for o in out)
+    return levenshtein_sweep_banded_batch(sweep.chars_t, sweep.lengths, q_t, ql_t, band=band)
+
+
+def prefetch_fuzzy_matches(index, specs) -> Dict[Tuple[str, str, int, bool], tuple]:
+    """Every match of every ``(field, lower_term, distance, starts_with)``
+    spec. Per field, the specs the band holds (distance <= 4, no
+    ``starts_with``) take ONE banded sweep launch and the others (their
+    matches need the full distance, or the distance over term prefixes)
+    ONE full-width launch. The field's terms longer than the sweep matrix
+    take one more full-width launch over their first 32 chars for the
+    ``starts_with`` specs, and one batched exact distance pass over the
+    candidates (:func:`_long_matches`). A ``starts_with`` spec matches on
+    its prefix distance, every other spec on its distance. Returns
+    ``{spec: (term_ids, distances, is_prefix)}``, term ids ascending.
+    Specs longer than 31 chars are left to the host loop of
     :func:`get_term_ids_in_field`, as in the reference."""
-    by_field: Dict[str, list] = {}
-    for field, lower_term, distance in sorted(set(specs)):
+    launches: Dict[Tuple[str, bool], list] = {}
+    for field, lower_term, distance, starts_with in sorted(set(specs)):
         if len(lower_term) <= MAX_QUERY_CHARS - 1:
-            by_field.setdefault(field, []).append((lower_term, distance))
+            full = starts_with or distance > MAX_BAND
+            launches.setdefault((field, full), []).append((lower_term, distance, starts_with))
     out = {}
-    for field, items in by_field.items():
+    for (field, _full), items in launches.items():
         dictionary = index.get_dictionary(field)
-        sweep = index.fields[field]
-        dev = sweep.chars_t.device
-        queries = np.zeros((len(items), MAX_QUERY_CHARS), dtype=np.uint16)
-        qlens = np.zeros(len(items), dtype=np.int32)
-        for row, (lower_term, _d) in enumerate(items):
-            queries[row], qlens[row] = encode_query(lower_term)
-        band = 2 if max(d for _t, d in items) <= 2 else 4
-        q_t = torch.from_numpy(queries).to(dev)
-        ql_t = torch.from_numpy(qlens).to(dev)
-        if len(items) == 1:
-            dist, _pd, ispref = (
-                o[None] for o in levenshtein_sweep_banded(
-                    sweep.chars_t, sweep.lengths, q_t[0], ql_t, band=band
-                )
-            )
-        else:
-            dist, _pd, ispref = levenshtein_sweep_banded_batch(
-                sweep.chars_t, sweep.lengths, q_t, ql_t, band=band
-            )
-        distances = torch.tensor([d for _t, d in items], dtype=torch.int32, device=dev)
-        rows, ids, dists, prefs = (
-            t.cpu().numpy()
-            for t in select_matches(dist, ispref, dist, distances, remap=sweep.sweep_ids)
-        )
-        bounds = np.searchsorted(rows, np.arange(len(items) + 1))
-        for row, (lower_term, distance) in enumerate(items):
-            sl = slice(bounds[row], bounds[row + 1])
-            out[(field, lower_term, distance)] = _postprocess_matches(
-                dictionary, ids[sl], dists[sl], prefs[sl], lower_term, distance
-            )
+        matches = _select(index.fields[field], items)
+        extras = _long_matches(index.long_terms[field], items)
+        for item, swept, extra in zip(items, matches, extras):
+            out[(field, *item)] = _merge_matches(dictionary, swept, extra)
     return out
+
+
+def _host_matches(dictionary, lower_term, distance, starts_with):
+    """A query longer than the sweep's 31 chars: host loop over the whole
+    dictionary (:451-464). A ``starts_with`` query also takes every term it
+    is a prefix of."""
+    lows = [t.lower() for t in dictionary.terms]
+    is_p = np.fromiter((lo.startswith(lower_term) for lo in lows), dtype=bool, count=len(lows))
+    near = np.fromiter(
+        (abs(len(lo) - len(lower_term)) <= distance for lo in lows), dtype=bool, count=len(lows)
+    )  # lev(a, b) >= |len(a) - len(b)|
+    cand = np.flatnonzero(near | (is_p & starts_with))
+    dist = levenshtein_distances_host(lower_term, [lows[i] for i in cand])
+    keep = (dist <= distance) | (is_p[cand] & starts_with)
+    return cand[keep].astype(np.int64), dist[keep].astype(np.int64), is_p[cand][keep]
 
 
 def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.ndarray]:
@@ -137,41 +227,37 @@ def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.nd
 
     ``fuzzy_matches`` is :func:`prefetch_fuzzy_matches`' result for the
     batch. Exact terms match case-folded unless ``ignore_case`` is false;
-    fuzzy matches are re-verified against the original case when it is.
-    Leaf ``boost`` multiplies the scores and leaf ``top`` (+ ``skip``) keeps
-    the best-scoring terms."""
+    a ``starts_with`` leaf at distance 0 takes the dictionary's prefix
+    range; fuzzy matches are re-verified against the original case when
+    ``ignore_case`` is false, on the FULL distance even for ``starts_with``
+    (:469-481). Leaf ``boost`` multiplies the scores and leaf ``top``
+    (+ ``skip``) keeps the best-scoring terms."""
     field = leaf_field(part)
     dictionary = index.get_dictionary(field)
     term = part.terms[0]
     lower_term = term.lower()
     ignore_case = part.ignore_case if part.ignore_case is not None else True
     distance = clamped_distance(part)
+    starts_with = bool(part.starts_with)
 
     aligned_dists = aligned_prefixes = None
-    if distance == 0:
+    if distance == 0 and not starts_with:
         if ignore_case:
             ids = dictionary.get_ignore_case(term)
         else:
             tid = dictionary.get(term)
             ids = [tid] if tid is not None else []
         matched = np.array(sorted(ids), dtype=np.int64)
+    elif distance == 0:
+        matched = dictionary.prefix_range_ids(term, ignore_case=ignore_case)
     else:
         if len(lower_term) > MAX_QUERY_CHARS - 1:
-            # very long query: host loop over the whole dictionary
-            crit_ids, crit_d, crit_p = [], [], []
-            for i, t in enumerate(dictionary.terms):
-                lo = t.lower()
-                d = levenshtein_distance_host(lower_term, lo)
-                if d <= distance:
-                    crit_ids.append(i)
-                    crit_d.append(d)
-                    crit_p.append(lo.startswith(lower_term))
-            matched = np.array(crit_ids, dtype=np.int64)
-            aligned_dists = np.array(crit_d, dtype=np.int64)
-            aligned_prefixes = np.array(crit_p, dtype=bool)
+            matched, aligned_dists, aligned_prefixes = _host_matches(
+                dictionary, lower_term, distance, starts_with
+            )
         else:
             matched, aligned_dists, aligned_prefixes = fuzzy_matches[
-                (field, lower_term, distance)
+                (field, lower_term, distance, starts_with)
             ]
         if not ignore_case:
             keep = np.array(
@@ -190,9 +276,15 @@ def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.nd
     if aligned_dists is not None:
         distances = aligned_dists
         prefix_matches = aligned_prefixes  # distance != 0: prefixes count
+    elif starts_with:
+        # prefix range: every term starts with the query, so its distance is
+        # |candidate| - |query| (:491-498)
+        distances = dictionary.char_lengths()[matched].astype(np.int64) - len(lower_term)
+        prefix_matches = np.ones(len(matched), dtype=bool)
     else:
         # exact path: distance = |candidate| - |query| when the candidate
-        # starts with the query, else the true distance
+        # starts with the query, else the true distance; prefixes do not
+        # count (:487, :500-510)
         distances = np.empty(len(matched), dtype=np.int64)
         prefix_matches = np.zeros(len(matched), dtype=bool)
         for i, tid in enumerate(matched):
