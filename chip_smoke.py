@@ -3,7 +3,11 @@
 
 Run from the repository root, on a machine with a CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--compare-full OLD_full_levenshtein.cu]
+
+``--compare-full`` builds another version of the full-width kernel's source
+(the same C entry point) and times it against the tree's in turns (old,
+new, new, old) at every full-width shape below, outputs required equal.
 
 Phases (any failure is an exception and a non-zero exit):
 
@@ -13,12 +17,16 @@ Phases (any failure is an exception and a non-zero exit):
 3. kernel -- each Levenshtein sweep kernel against its plain PyTorch version
              on the card: the banded one at band 2 and 4 and the full-width
              one, Q = 1, 64 and 256, on the slice's field dictionary and on a
-             synthetic 1,000,000-term dictionary; all three outputs must be
-             equal (tolerance: exact, the outputs are integers). Median ms of
-             each, CUDA events.
+             synthetic 1,000,000-term dictionary, and on an edge-case set
+             (code points above 255 and colliding in their low 8 bits,
+             queries of 0-33 chars, empty and 32-char terms); all three
+             outputs must be equal (tolerance: exact, the outputs are
+             integers). Median ms of each, CUDA events, beside the bound:
+             the larger of the bytes moved over 3.35 TB/s and the integer
+             operations over the card's INT32 rate.
 4. slice  -- a jmdict-shaped 200,000-document corpus (the generator of
-             bench.py's build_corpus, seed 1234) is built with the reused
-             host builder, saved, read back by the port's reader and uploaded.
+             bench.py's build_corpus, seed 1234) is built with the port's
+             builder and native indexer, saved, read back and uploaded.
              Two main paths through ``search_batch``: single leaves (batches
              of 256 exact, ~1 and ~2 requests, and single fuzzy requests),
              then query trees (batches of 256 query-string requests from the
@@ -26,7 +34,10 @@ Phases (any failure is an exception and a non-zero exit):
              wildcards, each pair joined by AND or OR -- and of 256 explicit AND-of-ORs
              fuzzy requests). Each path runs with the kernels' launch
              counters set to 0 just before it and read just after; each
-             kernel the path needs must have launched. Answers are checked for shape and
+             kernel the path needs must have launched. Every full-width
+             launch of the query_string mix is logged (field, N, Q, mean
+             query length), and the kernel is checked and timed again on
+             each field's launch at its median Q, on its own inputs. Answers are checked for shape and
              order, and requests are answered again on the CPU through the
              plain versions from the same index: ids, order, num_hits and f32
              score bits must be identical.
@@ -36,9 +47,11 @@ Phases (any failure is an exception and a non-zero exit):
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import gc
+import hashlib
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -56,6 +69,18 @@ CPU_CHECKED_BATCHES = 4  # per single-leaf mix, re-answered on the CPU
 CPU_CHECKED_TREE_BATCHES = 1  # per tree mix (their CPU sweeps are full-width)
 SINGLES = 32  # one-request batches (single-query sweep entry point)
 SYNTH_TERMS = 1_000_000
+
+# Peak rates of one H100 SXM at its 700 W limit: HBM3 at 3.35 TB/s; INT32
+# instructions at 132 SMs x 64 INT32 lanes x 1.98 GHz (NVIDIA's data sheet
+# and Hopper white paper). The sweeps are integer work: no tensor-core or
+# float rate applies.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# banded DP cell: a compare and two fused add-mins (Hopper's DPX
+# instructions); counting five (two adds and two mins apart) put the bound
+# above the measured time
+BAND_CELL_OPS = 3
+BITPARALLEL_STEP_OPS = 16  # one bit-parallel step (Hyyro) per term char
 
 
 def log(msg: str) -> None:
@@ -191,8 +216,108 @@ def time_ms(fn, warmup: int = 2, iters: int = 5, reps: int = 5) -> float:
     return statistics.median(samples)
 
 
+def sweep_bound(chars_t, lens, queries, qlens, band):
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    one sweep on these inputs. Bytes: each input read once (64 + 4 bytes a
+    term, 64 + 4 a query), each output written once (9 bytes a pair).
+    Operations, counted on this run's data: the banded DP computes
+    2 * band + 1 cells of BAND_CELL_OPS per (query char, term); the
+    bit-parallel sweep one step of BITPARALLEL_STEP_OPS per (query, term
+    char), for the queries that are not empty."""
+    n, q = chars_t.shape[1], queries.shape[0]
+    moved = n * (64 + 4) + q * (64 + 4) + q * n * 9
+    ql = qlens.to(torch.int64).clamp(max=32)
+    if band is None:
+        ops = BITPARALLEL_STEP_OPS * int((ql > 0).sum()) * int(lens.to(torch.int64).sum())
+    else:
+        ops = BAND_CELL_OPS * (2 * band + 1) * int(ql.sum()) * n
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+class BaselineFull:
+    """Another version of csrc/full_levenshtein.cu (the same C entry point),
+    built with the tree's flags into build/, for timing against the tree's
+    kernel in one process."""
+
+    def __init__(self, build, sweep, source: Path):
+        text = source.read_bytes()
+        self.lib_path = build.BUILD_DIR / f"baseline-{hashlib.sha256(text).hexdigest()[:16]}.so"
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.proc = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(self.lib_path), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        self.signature = sweep.SIGNATURES[sweep.FULL]["veloci_full_sweep"]
+        self.fn = None
+
+    def wait(self) -> str:
+        log_text, _ = self.proc.communicate()
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the baseline full-width kernel:\n{log_text}")
+        fn = ctypes.CDLL(str(self.lib_path)).veloci_full_sweep
+        fn.restype, fn.argtypes = ctypes.c_int, self.signature
+        self.fn = fn
+        return log_text
+
+    def __call__(self, chars_t, lens, queries, qlens):
+        q, n = queries.shape[0], chars_t.shape[1]
+        out = [torch.empty((q, n), dtype=t, device=chars_t.device)
+               for t in (torch.int32, torch.int32, torch.bool)]
+        err = self.fn(chars_t.data_ptr(), lens.data_ptr(), n, queries.data_ptr(),
+                      qlens.data_ptr(), q, *(o.data_ptr() for o in out),
+                      torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"baseline full-width kernel launch failed ({err})")
+        return tuple(out)
+
+
+def compare_full(sweep, baseline, chars_t, lens, queries, qlens, big):
+    """The baseline and the tree's full-width kernel on the same inputs:
+    outputs equal, then timed in turns old, new, new, old."""
+    new = sweep.levenshtein_sweep_full_batch
+    got, old = new(chars_t, lens, queries, qlens), baseline(chars_t, lens, queries, qlens)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, old)):
+        raise AssertionError("baseline full-width kernel != the tree's")
+    iters = 3 if big else 10
+    runs = []
+    for fn in (baseline, new, new, baseline):
+        runs.append(time_ms(lambda: fn(chars_t, lens, queries, qlens), iters=iters))
+    old_ms, new_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+    return dict(old_new_new_old_ms=[runs[0], runs[1], runs[2], runs[3]], old_ms=old_ms,
+                new_ms=new_ms, speedup=old_ms / new_ms)
+
+
 # ---------------------------------------------------------------- phases
-def kernel_phase(sweep, encode_query, dictionaries, rng, report):
+def edge_phase(sweep, encode_query, rng):
+    """Every sweep kernel against its plain version on the edge cases: code
+    points above 255 and colliding in their low 8 bits ('a' / U+0161),
+    above the BMP, queries of 0, 1, 31, 32, 33 chars, terms of 0 and 32."""
+    alphabet = ["a", "b", "\u0161", "\u0101", "\x01", "\u65e5", "\U0001F600"]
+    words = ["".join(rng.choice(alphabet, size=int(k))) for k in rng.integers(0, 33, 5003)]
+    words[:4] = ["", "a" * 32, "\u0161" * 32, "ab" * 16]
+    enc = [encode_query(w) for w in words]
+    chars_t = torch.from_numpy(np.ascontiguousarray(np.stack([e for e, _n in enc]).T)).cuda()
+    lens = torch.tensor([n for _e, n in enc], dtype=torch.int32, device="cuda")
+    qwords = ["", "a", "\u0161", "ab" * 15 + "a", "ab" * 16, "ab" * 16 + "a", "\u0161a" * 17]
+    qwords += ["".join(rng.choice(alphabet, size=int(k))) for k in rng.integers(1, 34, 63)]
+    queries = torch.from_numpy(np.stack([encode_query(w)[0] for w in qwords])).cuda()
+    qlens = torch.tensor([len(w) for w in qwords], dtype=torch.int32, device="cuda")
+    cases = [("full", None, sweep.levenshtein_sweep_full_batch, sweep.levenshtein_sweep_full_batch_plain)]
+    for band in (2, 4):
+        cases.append((f"band {band}", band,
+                      lambda *a, b=band: sweep.levenshtein_sweep_banded_batch(*a, band=b),
+                      lambda *a, b=band: sweep.levenshtein_sweep_banded_batch_plain(*a, band=b)))
+    for name, _band, kern, plain in cases:
+        got, want = kern(chars_t, lens, queries, qlens), plain(chars_t, lens, queries, qlens)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"sweep kernel != plain on the edge cases ({name})")
+        log(f"kernel edge cases N={chars_t.shape[1]} Q={queries.shape[0]} {name}: equal")
+
+
+def kernel_phase(sweep, encode_query, dictionaries, rng, report, baseline):
     """Kernel vs plain on the card at every shape; exact equality."""
     err = {"batch": 0, "single": 0, "full": 0}
     times = {}
@@ -245,12 +370,20 @@ def kernel_phase(sweep, encode_query, dictionaries, rng, report):
                 big = n * q > 16_000_000
                 k_ms = time_ms(kern, iters=3 if big else 10)
                 p_ms = time_ms(plain, warmup=1, iters=1, reps=3 if big else 5)
-                times[(dname, q, band)] = (k_ms, p_ms)
+                bound_ms, bound_by = sweep_bound(chars_t, lens, queries, qlens, band)
+                times[(dname, q, band)] = (k_ms, p_ms, bound_ms, bound_by)
                 row = dict(dictionary=dname, terms=n, queries=q, band=band, entry=entry,
-                           equal=True, kernel_ms=k_ms, plain_ms=p_ms)
+                           equal=True, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+                cmp = ""
+                if band is None and baseline is not None:
+                    row["compare"] = compare_full(sweep, baseline, chars_t, lens, queries, qlens, big)
+                    cmp = (f"; old / new / new / old "
+                           f"{' / '.join(f'{t:.4f}' for t in row['compare']['old_new_new_old_ms'])} ms")
                 report["kernel_rows"].append(row)
                 log(f"kernel {dname:>9} N={n:>8} Q={q:>3} {'band=' + str(band) if band else 'full  '} "
-                    f"{entry:>6}: equal, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                    f"{entry:>6}: equal, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms ({bound_by}){cmp}")
     return err, times
 
 
@@ -298,15 +431,86 @@ def result_key(res):
     return res.num_hits, [(h.id, np.float32(h.score).view(np.int32).item()) for h in res.data]
 
 
+def record_full_launches(field_search, index, calls):
+    """Route the field search's full-width sweep calls through a recorder
+    that keeps each launch's inputs and calls the kernel's wrapper."""
+    real = field_search.levenshtein_sweep_full_batch
+    names = {fs.chars_t.data_ptr(): f for f, fs in index.fields.items()}
+    names.update({lt.prefixes.chars_t.data_ptr(): f"{f} (long-term prefixes)"
+                  for f, lt in index.long_terms.items()})
+
+    def recording(chars_t, lens, queries, qlens):
+        calls.append((names.get(chars_t.data_ptr(), "?"), chars_t, lens, queries.clone(),
+                      qlens.clone()))
+        return real(chars_t, lens, queries, qlens)
+
+    field_search.levenshtein_sweep_full_batch = recording
+    return real
+
+
+def main_path_shape(sweep, calls, baseline, report):
+    """Log the main path's full-width launches, then check and time the
+    kernel on each field's launch at its median Q, on that launch's own
+    inputs. Each field's dictionary is swept once a batch, with Q the
+    batch's distinct full-width specs; the field with the most (query,
+    term) pairs over the run is the main path's shape (returned)."""
+    shapes = {}
+    for call in calls:
+        field, chars_t, _lens, queries, qlens = call
+        shapes.setdefault((field, chars_t.shape[1]), []).append(call)
+        log(f"  full-width launch: field {field}, N={chars_t.shape[1]}, Q={queries.shape[0]}, "
+            f"mean query length {float(qlens.float().mean()):.2f}")
+    log(f"main path full-width launches: {len(calls)}")
+    report["slice"]["full_launches"] = [
+        dict(field=c[0], terms=c[1].shape[1], queries=c[3].shape[0],
+             mean_qlen=float(c[4].float().mean())) for c in calls
+    ]
+    rows = {}
+    for (field, n), group in shapes.items():
+        group = sorted(group, key=lambda c: c[3].shape[0])
+        _f, chars_t, lens, queries, qlens = group[len(group) // 2]
+        q = queries.shape[0]
+        got = sweep.levenshtein_sweep_full_batch(chars_t, lens, queries, qlens)
+        want = sweep.levenshtein_sweep_full_batch_plain(chars_t, lens, queries, qlens)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"full-width kernel != plain on the main path's launch {field} N={n} Q={q}")
+        k_ms = time_ms(lambda: sweep.levenshtein_sweep_full_batch(chars_t, lens, queries, qlens),
+                       iters=10)
+        p_ms = time_ms(lambda: sweep.levenshtein_sweep_full_batch_plain(chars_t, lens, queries, qlens),
+                       warmup=1, iters=1, reps=3)
+        bound_ms, bound_by = sweep_bound(chars_t, lens, queries, qlens, None)
+        row = dict(field=field, terms=n, queries=q, mean_qlen=float(qlens.float().mean()),
+                   mean_term_len=float(lens.float().mean()), launches=len(group),
+                   pairs=sum(c[1].shape[1] * c[3].shape[0] for c in group), equal=True,
+                   kernel_ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+        cmp = ""
+        if baseline is not None:
+            row["compare"] = compare_full(sweep, baseline, chars_t, lens, queries, qlens, False)
+            cmp = (f"; old / new / new / old "
+                   f"{' / '.join(f'{t:.4f}' for t in row['compare']['old_new_new_old_ms'])} ms")
+        rows[(field, n)] = row
+        log(f"kernel on the main path's launch ({field}, N={n}, median Q={q}, mean qlen "
+            f"{row['mean_qlen']:.2f}, mean term length {row['mean_term_len']:.2f}): equal, "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}){cmp}")
+    report["main_full_shapes"] = list(rows.values())
+    main = max(rows.values(), key=lambda r: r["pairs"])
+    log(f"main path's full-width shape: {main['field']}, N={main['terms']}, Q={main['queries']}")
+    return main
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--compare-full", type=Path, default=None,
+                        help="another full_levenshtein.cu to time against the tree's")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
-    os.environ.setdefault("VELOCI_NATIVE_CACHE", str(ROOT / "build" / "native"))
     sys.path.insert(0, str(ROOT))
     import veloci_tpu_torch as vt
-    from veloci_tpu_torch import _host
     from veloci_tpu_torch.ops import _build
     from veloci_tpu_torch.ops import levenshtein, levenshtein_sweep
+    from veloci_tpu_torch.search import field_search
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -316,17 +520,22 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- build
+    # ---- build (the baseline, if any, compiles beside the tree's sources)
     t0 = time.perf_counter()
+    baseline = None
+    if args.compare_full is not None:
+        baseline = BaselineFull(_build, levenshtein_sweep, args.compare_full.resolve())
     libs = _build.build_all()
+    ptxas_logs = {src: Path(f"{lib}.ptxas.txt").read_text() for src, lib in libs.items()
+                  if Path(f"{lib}.ptxas.txt").exists()}
+    if baseline is not None:
+        ptxas_logs[f"baseline {args.compare_full}"] = baseline.wait()
     build_s = time.perf_counter() - t0
     log(f"build: {len(libs)} CUDA source(s) in {build_s:.2f} s")
-    for src, lib in libs.items():
-        ptxas = Path(f"{lib}.ptxas.txt")
-        if ptxas.exists():
-            for line in ptxas.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  {src}: {line.strip()}")
+    for src, text in ptxas_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {src}: {line.strip()}")
     report["build_s"] = build_s
 
     # ---- corpus, index build, save, read + upload
@@ -334,9 +543,7 @@ def main() -> None:
     data, vocab, probs = build_corpus(N_DOCS)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pers = _host.persistence.Persistence.from_built(
-        _host.create.create_indices_from_str(data, BENCH_CONFIG)
-    )
+    pers = vt.Persistence.from_built(vt.create_indices_from_str(data, BENCH_CONFIG))
     index_build_s = time.perf_counter() - t0
     index_dir = ROOT / "build" / "smoke_index"
     t0 = time.perf_counter()
@@ -344,12 +551,15 @@ def main() -> None:
     save_s = time.perf_counter() - t0
     del pers, data
     t0 = time.perf_counter()
-    index = vt.load_index(str(index_dir), "cuda")
+    index = vt.load_index(str(index_dir))
     torch.cuda.synchronize()
     load_upload_s = time.perf_counter() - t0
     title = index.fields["title"]
+    from veloci_tpu_torch import native
+
     log(f"slice: {N_DOCS} docs, generated in {gen_s:.2f} s, index built in "
-        f"{index_build_s:.2f} s, saved in {save_s:.2f} s, read + uploaded in "
+        f"{index_build_s:.2f} s (native indexer: {native.native_available()}), "
+        f"saved in {save_s:.2f} s, read + uploaded in "
         f"{load_upload_s:.2f} s; title dictionary {title.chars_t.shape[1]} sweep rows, "
         f"{index.packed.shape[0]} postings")
     report["slice"].update(gen_s=gen_s, index_build_s=index_build_s, save_s=save_s,
@@ -371,8 +581,9 @@ def main() -> None:
         "synthetic": (torch.from_numpy(s_chars).cuda(), torch.from_numpy(s_lens).cuda(),
                       np.array(s_words)),
     }
+    edge_phase(levenshtein_sweep, levenshtein.encode_query, rng)
     kernel_err, kernel_times = kernel_phase(
-        levenshtein_sweep, levenshtein.encode_query, dictionaries, rng, report
+        levenshtein_sweep, levenshtein.encode_query, dictionaries, rng, report, baseline
     )
     del dictionaries
     torch.cuda.empty_cache()
@@ -423,12 +634,15 @@ def main() -> None:
     lat = {}
     rows_per_batch = {}  # posting rows gathered per batch, by mix
     path_launches = {}
+    full_calls = []  # the query_string mix's full-width launches
     gc.callbacks.append(on_gc)
     for path, names, needed in paths:
         for fn in kernel_fns.values():
             fn.launches = 0
         for name in names:
             lat[name], answers[name], rows_per_batch[name] = [], [], []
+            if name == "query_string":
+                real_full = record_full_launches(field_search, index, full_calls)
             for batch in requests_of[name]:
                 reqs = [make(d, index) for d in batch]
                 rows0 = sum(index.gathered_rows.values())
@@ -437,6 +651,8 @@ def main() -> None:
                 lat[name].append(time.perf_counter() - t0)
                 rows_per_batch[name].append(sum(index.gathered_rows.values()) - rows0)
                 answers[name].append(res)
+            if name == "query_string":
+                field_search.levenshtein_sweep_full_batch = real_full
         torch.cuda.synchronize()
         path_launches[path] = {name: fn.launches for name, fn in kernel_fns.items()}
         log(f"main path {path} launches: {path_launches[path]}")
@@ -454,6 +670,8 @@ def main() -> None:
     report["slice"]["gc_full_ms"] = gc_full_ms
     report["slice"]["rows_per_batch"] = rows_per_batch
     report["slice"]["path_launches"] = path_launches
+    main_full = main_path_shape(levenshtein_sweep, full_calls, baseline, report)
+    del full_calls
 
     # ---- checks: shape and order, then the CPU plain path on the same index
     hits = 0
@@ -497,26 +715,30 @@ def main() -> None:
 
     profile_phase(vt, index, requests_of, make, report)
 
-    main_shape = ("title", 256, 2)
+    # B1 and B2 at the kernel phase's title shapes (band 2, Q 256 and 1); B3
+    # at the main path's most frequent full-width shape, on its own inputs.
+    # No single PyTorch call computes a Levenshtein sweep: library_ms is null.
+    b1, b2 = kernel_times[("title", 256, 2)], kernel_times[("title", 1, 2)]
     kernels = [
         {"name": "levenshtein_sweep_banded_batch", "route": "cuda",
          "source": "veloci_tpu_torch/csrc/banded_levenshtein.cu",
          "replaces": "veloci_tpu/ops/pallas_levenshtein.py:341",
          "launches": launches["levenshtein_sweep_banded_batch"],
-         "max_abs_err": kernel_err["batch"],
-         "ms": kernel_times[main_shape][0], "plain_ms": kernel_times[main_shape][1]},
+         "max_abs_err": kernel_err["batch"], "ms": b1[0], "plain_ms": b1[1],
+         "bound_ms": b1[2], "bound_by": b1[3], "library_ms": None},
         {"name": "levenshtein_sweep_banded", "route": "cuda",
          "source": "veloci_tpu_torch/csrc/banded_levenshtein.cu",
          "replaces": "veloci_tpu/ops/pallas_levenshtein.py:412",
          "launches": launches["levenshtein_sweep_banded"],
-         "max_abs_err": kernel_err["single"],
-         "ms": kernel_times[("title", 1, 2)][0], "plain_ms": kernel_times[("title", 1, 2)][1]},
+         "max_abs_err": kernel_err["single"], "ms": b2[0], "plain_ms": b2[1],
+         "bound_ms": b2[2], "bound_by": b2[3], "library_ms": None},
         {"name": "levenshtein_sweep_full_batch", "route": "cuda",
          "source": "veloci_tpu_torch/csrc/full_levenshtein.cu",
          "replaces": "veloci_tpu/ops/pallas_levenshtein.py:72",
          "launches": launches["levenshtein_sweep_full_batch"],
-         "max_abs_err": kernel_err["full"],
-         "ms": kernel_times[("title", 256, None)][0], "plain_ms": kernel_times[("title", 256, None)][1]},
+         "max_abs_err": kernel_err["full"], "ms": main_full["kernel_ms"],
+         "plain_ms": main_full["plain_ms"], "bound_ms": main_full["bound_ms"],
+         "bound_by": main_full["bound_by"], "library_ms": None},
     ]
     report["kernels"] = kernels
     report["launches"] = launches

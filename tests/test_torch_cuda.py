@@ -16,10 +16,11 @@ import pytest
 import torch
 
 from veloci_tpu_torch import (
+    Persistence,
     Request,
     SearchQueryGeneratorParameters,
     TorchIndex,
-    _host,
+    create_indices_from_str,
     search_batch,
     search_query,
 )
@@ -104,9 +105,7 @@ def test_search_on_card_equals_cpu(card):
     docs = "\n".join(
         '{"title": "%s"}' % " ".join(rng.choice(vocab, size=5)) for _ in range(3000)
     )
-    pers = _host.persistence.Persistence.from_built(
-        _host.create.create_indices_from_str(docs, "{}")
-    )
+    pers = Persistence.from_built(create_indices_from_str(docs, "{}"))
     on_cpu = TorchIndex.from_persistence(pers, "cpu")
     on_card = TorchIndex.from_persistence(pers, card)
     dicts = [

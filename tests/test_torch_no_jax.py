@@ -1,12 +1,12 @@
-"""The port runs where JAX is absent: it never imports ``jax`` nor runs
-``veloci_tpu/__init__.py``, reaches the reference's host layers (the query
-generator included) only through ``veloci_tpu_torch._host``, and refuses a
-CUDA device it does not have. The
-standalone ``chip_smoke.py`` refuses to run without a card or without the
-repository around it."""
+"""The port stands alone: it never imports ``jax`` nor anything of the JAX
+package ``veloci_tpu/``, runs from a tree that holds only the port, the
+native indexer's source and ``chip_smoke.py``, and refuses a CUDA device it
+does not have. ``chip_smoke.py`` refuses to run without a card, in the
+repository, in that tree and alone."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in (REPO / "veloci_tpu_torch").rglob("*.py"))
 
 # Built, saved, read back and searched in a fresh interpreter. With
 # "block", importing jax raises ImportError for the whole run.
@@ -25,21 +26,24 @@ import sys
 if sys.argv[1] == "block":
     sys.modules["jax"] = None
 import tempfile
+from pathlib import Path
 import numpy as np
 import torch
-from veloci_tpu_torch import Request, SearchQueryGeneratorParameters, _host, load_index, search_batch
-from veloci_tpu_torch import search_query
+from veloci_tpu_torch import (
+    Persistence, Request, SearchQueryGeneratorParameters, create_indices_from_str, load_index,
+    search_batch, search_query,
+)
 
 rng = np.random.default_rng(3)
 vocab = ["hello", "help", "hells", "world", "word", "Hello", "x" * 40]
 docs = "\n".join('{"title": "%s"}' % " ".join(rng.choice(vocab, 4)) for _ in range(400))
-pers = _host.persistence.Persistence.from_built(_host.create.create_indices_from_str(docs, "{}"))
+pers = Persistence.from_built(create_indices_from_str(docs, "{}"))
 with tempfile.TemporaryDirectory() as d:
     pers.save(d)
     index = load_index(d, "cpu")
     if not torch.cuda.is_available():
         try:
-            load_index(d, "cuda")
+            load_index(d)
         except RuntimeError:
             pass
         else:
@@ -57,43 +61,109 @@ assert not loaded, loaded
 assert sys.argv[1] != "block" or sys.modules["jax"] is None
 assert "jax" not in sys.modules or sys.argv[1] == "block"
 assert "veloci_tpu" not in sys.modules and not any(m.startswith("veloci_tpu.") for m in sys.modules)
+ref_dir = Path(sys.argv[2]).resolve() / "veloci_tpu"
+inside = [m for m, mod in list(sys.modules.items())
+          if getattr(mod, "__file__", None) and Path(mod.__file__).resolve().is_relative_to(ref_dir)]
+assert not inside, inside
 print("PORT-OK")
 """
 
 
-def _run(args, cwd):
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+@pytest.fixture(scope="module")
+def port_only(tmp_path_factory):
+    """A tree with the port, the native indexer's source and chip_smoke.py,
+    and nothing else of the repository."""
+    root = tmp_path_factory.mktemp("port_only")
+    skip = shutil.ignore_patterns("__pycache__", "*.pyc", "*.so")
+    shutil.copytree(REPO / "veloci_tpu_torch", root / "veloci_tpu_torch", ignore=skip)
+    shutil.copytree(REPO / "native", root / "native", ignore=skip)
+    shutil.copy(REPO / "chip_smoke.py", root / "chip_smoke.py")
+    assert not (root / "veloci_tpu").exists()
+    return root
+
+
+def _run(args, root):
+    env = dict(os.environ, PYTHONPATH=str(root))
     return subprocess.run(
-        [sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True, timeout=300
+        [sys.executable, *args], cwd=root, env=env, capture_output=True, text=True, timeout=600
     )
 
 
 @pytest.mark.parametrize("mode", ["block", "absent"])
 def test_port_runs_without_jax(mode):
-    proc = _run(["-c", SCRIPT, mode], REPO)
+    proc = _run(["-c", SCRIPT, mode, str(REPO)], REPO)
     assert proc.returncode == 0, proc.stderr
     assert "PORT-OK" in proc.stdout
 
 
-def _imports(path: Path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+@pytest.mark.parametrize("mode", ["block", "absent"])
+def test_port_runs_without_reference_package(port_only, mode):
+    proc = _run(["-c", SCRIPT, mode, str(port_only)], port_only)
+    assert proc.returncode == 0, proc.stderr
+    assert "PORT-OK" in proc.stdout
+    assert list((port_only / "build" / "native").glob("libveloci_native-*.so"))
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
 
 
-@pytest.mark.parametrize(
-    "path",
-    sorted(p.relative_to(REPO).as_posix() for p in (REPO / "veloci_tpu_torch").rglob("*.py"))
-    + ["chip_smoke.py"],
-)
+def _docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                yield body[0].value
+
+
+# a citation of a reference kernel as file:line, as chip_smoke.py's kernel
+# table gives it, names no path that is opened
+_CITATION = re.compile(r"veloci_tpu/[\w/]+\.py:\d+")
+
+
+def _reaches_reference(tree):
+    """Loading by file location, or a string that names the reference
+    package's directory as a path."""
+    docs = {id(c) for c in _docstrings(tree)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr == "spec_from_file_location":
+            yield "spec_from_file_location"
+        elif isinstance(node, ast.alias) and node.name == "spec_from_file_location":
+            yield "spec_from_file_location"
+        elif (
+            isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs
+            and re.search(r"(^|[/\\])veloci_tpu([/\\]|$)", node.value)
+            and not _CITATION.fullmatch(node.value)
+        ):
+            yield node.value
+
+
+@pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])
 def test_no_jax_or_reference_import(path):
+    tree = ast.parse((REPO / path).read_text(), path)
     bad = [
-        m for m in _imports(REPO / path)
+        m for m in _imports(tree)
         if m.split(".")[0] in ("jax", "jaxlib", "veloci_tpu")
     ]
     assert not bad, bad
+    assert not list(_reaches_reference(tree))
+
+
+def test_reference_scan_catches_loaders():
+    """The scan above rejects the ways around an import statement."""
+    for src in (
+        'import importlib.util\nimportlib.util.spec_from_file_location("m", "x.py")',
+        'from importlib.util import spec_from_file_location',
+        'from pathlib import Path\nREF = Path(__file__).parent.parent / "veloci_tpu"',
+        'open("../veloci_tpu/create.py")',
+    ):
+        assert list(_reaches_reference(ast.parse(src))), src
+    ok = '"""Counterpart of veloci_tpu/create.py."""\nREPLACES = "veloci_tpu/ops/pallas_levenshtein.py:72"'
+    assert not list(_reaches_reference(ast.parse(ok)))
 
 
 def test_cuda_index_without_cuda_raises():
@@ -105,17 +175,20 @@ def test_cuda_index_without_cuda_raises():
 
     with pytest.raises(RuntimeError, match="cuda"):
         TorchIndex.from_reference_arrays(
-            num_docs=0, dictionaries={}, fields={}, offsets=np.zeros(2, np.int64),
+            num_docs=0, all_fields=[], term_bytes={}, fields={}, offsets=np.zeros(2, np.int64),
             anchors=np.zeros(0, np.int32), scores=np.zeros(0, np.uint16), key_base={},
-            device="cuda",
         )
 
 
-def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
+def test_chip_smoke_refuses_without_card_or_repo(port_only, tmp_path):
+    """Without a card it refuses in the repository and in the port-only
+    tree; with nothing of the repository beside it, it refuses too."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    proc = _run(["chip_smoke.py"], REPO)
-    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    for root in (REPO, port_only):
+        proc = _run(["chip_smoke.py"], root)
+        assert proc.returncode != 0 and '"ok"' not in proc.stdout, root
+        assert "torch.cuda.is_available() is False" in proc.stderr, proc.stderr
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     env_free = subprocess.run(
         [sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True,

@@ -177,9 +177,10 @@ def built(tmp_path_factory):
             dev = pers.device_field(f)
             fields[f] = (dev._chars_host, dev._lengths_host, dev._sweep_ids_host)
     from_arrays = TorchIndex.from_reference_arrays(
-        num_docs=pers.num_docs, dictionaries=pers.dictionaries, fields=fields,
-        offsets=ns.offsets, anchors=ns.anchors, scores=ns.scores, key_base=key_base,
-        device="cpu", persistence=pers,
+        num_docs=pers.num_docs, all_fields=pers.get_all_fields(),
+        term_bytes={f: d.to_arrays()["term_bytes"] for f, d in pers.dictionaries.items()},
+        fields=fields, offsets=ns.offsets, anchors=ns.anchors, scores=ns.scores,
+        key_base=key_base, device="cpu",
     )
     directory = tmp_path_factory.mktemp("torch_index")
     pers.save(str(directory))

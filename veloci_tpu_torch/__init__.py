@@ -1,10 +1,11 @@
 """veloci_tpu_torch — the PyTorch + CUDA port of veloci_tpu, for one NVIDIA H100.
 
 The JAX package ``veloci_tpu/`` is the reference; this package answers the
-same requests on a torch device and never imports JAX. Its host layers
-(index build, on-disk format, term dictionaries, request model) are the
-reference package's own modules, reached through :mod:`._host` without
-running ``veloci_tpu/__init__.py``.
+same requests on a torch device, imports neither JAX nor anything of the
+reference package, and runs without it. Its host layers (index build with
+the native indexer, on-disk format, term dictionaries, request model, query
+generator) are its own copies of the reference's, writing and reading the
+same index files and building the same request trees.
 
 Current slice: :func:`search_batch` over requests whose tree is a search
 leaf, a flat OR or AND, an AND of ORs, or an OR of such ANDs, with leaves
@@ -14,33 +15,31 @@ Levenshtein sweeps are hand-written CUDA kernels
 (``csrc/banded_levenshtein.cu``, ``csrc/full_levenshtein.cu``). Other
 request shapes raise ``NotImplementedError``.
 
-    index = load_index("path/to/index", "cuda")
+    index = load_index("path/to/index")  # on the card; load_index(path, "cpu") on the CPU
     results = search_batch([Request.from_dict(d) for d in dicts], index)
     query = search_query(index, SearchQueryGeneratorParameters(search_term="haus AND bu*"))
     results = search_batch([query], index)
 
-``Request``, ``SearchQueryGeneratorParameters`` and ``search_query`` are the
-reference's own objects.
+An index is built with ``Persistence.from_built(create_indices_from_str(ndjson,
+config))`` and written with ``Persistence.save(directory)``.
 """
 
-from ._host import generator as _generator
-from ._host import request as _request
-from .persistence import TorchIndex, load_index, read_persistence
+from .create import create_indices_from_str
+from .persistence import Persistence, TorchIndex, load_index
+from .query.generator import SearchQueryGeneratorParameters, search_query
+from .query.request import Request
 from .search.batch import search_batch
 from .search.result import Hit, SearchResult
 
-Request = _request.Request
-SearchQueryGeneratorParameters = _generator.SearchQueryGeneratorParameters
-search_query = _generator.search_query
-
 __all__ = [
     "Hit",
+    "Persistence",
     "Request",
     "SearchQueryGeneratorParameters",
     "SearchResult",
     "TorchIndex",
+    "create_indices_from_str",
     "load_index",
-    "read_persistence",
     "search_batch",
     "search_query",
 ]

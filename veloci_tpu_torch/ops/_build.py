@@ -5,6 +5,8 @@ interface under ``build/`` at the repository root, named by a hash of the
 source text and flags, so an edited source never loads a stale binary.
 ``nvcc -Xptxas -v`` prints each kernel's registers, shared memory and
 spills; that report is kept beside the library as ``<lib>.ptxas.txt``.
+:func:`load` declares each entry point's argument types once, when the
+library is first loaded in the process.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict = {}  # source name -> loaded ctypes.CDLL (one per process)
+# every source's C entry points return a cudaError_t as int; each source
+# also exports veloci_cuda_error_string(int) -> const char*
 
 
 def _nvcc() -> str:
@@ -69,9 +73,18 @@ def build_all(sources=None) -> dict:
     return {source: library_path(source) for source in sources}
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>``, built first if needed."""
+def load(source: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, built first if needed. On
+    the first load, each ``{symbol: argtypes}`` of ``signatures`` is
+    declared to return an int (a ``cudaError_t``)."""
     lib = _LIBS.get(source)
     if lib is None:
-        lib = _LIBS[source] = ctypes.CDLL(str(build_all([source])[source]))
+        lib = ctypes.CDLL(str(build_all([source])[source]))
+        for symbol, argtypes in signatures.items():
+            fn = getattr(lib, symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+        lib.veloci_cuda_error_string.restype = ctypes.c_char_p
+        lib.veloci_cuda_error_string.argtypes = [ctypes.c_int]
+        _LIBS[source] = lib
     return lib

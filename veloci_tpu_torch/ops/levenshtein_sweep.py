@@ -13,9 +13,11 @@ Counterpart of the three Pallas kernels in
   true distance, so the matches at any ``d <= band`` are exact.
 * ``levenshtein_sweep_full_batch`` (``levenshtein_sweep_pallas``, and the
   XLA sweep ``levenshtein.levenshtein_sweep`` that the JAX package runs in
-  its place) runs ``csrc/full_levenshtein.cu``: the whole DP, so both
+  its place) runs ``csrc/full_levenshtein.cu``, a bit-parallel sweep whose
   distances are true at any size. ``starts_with`` leaves and distances
-  above 4 need it.
+  above 4 need it. Its plain version is the DP that defines the function;
+  ``levenshtein_sweep_full_batch_bitparallel`` is the kernel's algorithm in
+  torch, for the tests.
 
 Rows of length 0 give ``BIG`` and ``is_prefix`` false. Each kernel's source
 note says what bounds it. A tensor on the CPU takes the plain PyTorch
@@ -38,6 +40,7 @@ __all__ = [
     "levenshtein_sweep_banded_batch_plain",
     "levenshtein_sweep_full_batch",
     "levenshtein_sweep_full_batch_plain",
+    "levenshtein_sweep_full_batch_bitparallel",
 ]
 
 L = MAX_QUERY_CHARS  # term width == query width
@@ -47,6 +50,15 @@ _PLAIN_CHUNK_ELEMS = 1 << 24
 _PLAIN_CHUNK_ELEMS_FULL = 1 << 23
 BANDED = "banded_levenshtein.cu"
 FULL = "full_levenshtein.cu"
+_TABLE = 256  # code points with a direct match-table entry in the full-width kernel
+# C signatures: (chars_t, term_lens, n, queries, query_lens, q, *extra ints,
+# dist, prefix_dist, is_prefix, stream)
+_IN = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+_OUT = [ctypes.c_void_p] * 4
+SIGNATURES = {
+    BANDED: {"veloci_banded_sweep": [*_IN, ctypes.c_int, *_OUT]},
+    FULL: {"veloci_full_sweep": [*_IN, *_OUT]},
+}
 
 
 def _check(chars_t, term_lens, queries, query_lens, band) -> None:
@@ -191,33 +203,81 @@ def levenshtein_sweep_full_batch_plain(chars_t, term_lens, queries, query_lens):
     return _plain(_plain_full_chunk, _PLAIN_CHUNK_ELEMS_FULL, chars_t, term_lens, queries, query_lens)
 
 
+def levenshtein_sweep_full_batch_bitparallel(chars_t, term_lens, queries, query_lens):
+    """The full-width kernel's algorithm on any device, for tests: Myers'
+    bit-parallel sweep in Hyyro's edit-distance form, one step per term
+    char, vectorised over (query, term) with the 32-bit words held in int64.
+    It must equal :func:`levenshtein_sweep_full_batch_plain`, the DP that
+    defines the function."""
+    _check(chars_t, term_lens, queries, query_lens, None)
+    q, n = queries.shape[0], chars_t.shape[1]
+    dev = chars_t.device
+    word = 0xFFFFFFFF
+    chars = _u16_to_i32(chars_t).to(torch.int64)  # [32, N]
+    qs = _u16_to_i32(queries).to(torch.int64)  # [Q, 32]
+    lens = term_lens.to(torch.int64)[None, :]  # [1, N]
+    qlen_raw = query_lens.to(torch.int64)[:, None]  # [Q, 1]
+    m = qlen_raw.clamp(max=L)
+    bits = torch.where(
+        torch.arange(L, device=dev)[None, :] < m, 1 << torch.arange(L, device=dev), 0
+    )  # [Q, 32]: the bit of each query char, 0 past the query
+    # the kernel's match tables: Peq[q, c] for c < 256, and a compare with
+    # the query's chars at or above 256 for the rest
+    table = torch.zeros((q, _TABLE), dtype=torch.int64, device=dev)
+    rows = torch.arange(q, device=dev)
+    for i in range(L):
+        low = qs[:, i] < _TABLE
+        table[rows[low], qs[low, i]] |= bits[low, i]
+    high_bits = torch.where(qs >= _TABLE, bits, 0)
+    top = (m - 1).clamp(min=0)
+    pv = torch.full((q, n), word, dtype=torch.int64, device=dev)
+    mv = torch.zeros_like(pv)
+    score = m.expand(q, n).clone()  # lev(query, "")
+    pd, d = score.clone(), score.clone()
+    pref = (lens > 0) & (lens >= qlen_raw)
+    for j in range(int(lens.max()) if n else 0):
+        ch = chars[j]
+        high_eq = ((qs[:, :, None] == ch[None, None, :]) * high_bits[:, :, None]).sum(1)
+        eq = torch.where(ch < _TABLE, table[:, ch.clamp(max=_TABLE - 1)], high_eq)
+        xv = eq | mv
+        xh = ((((eq & pv) + pv) & word) ^ pv) | eq
+        ph = mv | (~(xh | pv) & word)
+        mh = pv & xh
+        score = score + ((ph >> top) & 1) - ((mh >> top) & 1)
+        ph = ((ph << 1) | 1) & word
+        pv = ((mh << 1) & word) | (~(xv | ph) & word)
+        mv = ph & xv
+        pd = torch.where(j < lens, torch.minimum(pd, score), pd)
+        d = torch.where(j + 1 == lens, score, d)
+        pref &= (j >= m) | (((eq >> j) & 1) == 1)
+    empty_query = m == 0
+    d = torch.where(empty_query, lens, d)
+    pd = torch.where(empty_query, 0, pd)
+    valid = lens > 0
+    big = torch.tensor(BIG, dtype=torch.int64, device=dev)
+    return (
+        torch.where(valid, d, big).to(torch.int32), torch.where(valid, pd, big).to(torch.int32),
+        pref,
+    )
+
+
 def _launch(source, symbol, chars_t, term_lens, queries, query_lens, *extra):
-    """Launch ``symbol`` of ``csrc/<source>`` on the current stream. Its C
-    signature is (chars_t, term_lens, n, queries, query_lens, q, *extra ints,
-    dist, prefix_dist, is_prefix, stream) and it returns the launch's error."""
+    """Launch ``symbol`` of ``csrc/<source>`` (its signature in
+    ``SIGNATURES``) on the current stream; raise the launch's error."""
     q, n = queries.shape[0], chars_t.shape[1]
     dev = chars_t.device
     dist = torch.empty((q, n), dtype=torch.int32, device=dev)
     prefix = torch.empty((q, n), dtype=torch.int32, device=dev)
     is_prefix = torch.empty((q, n), dtype=torch.bool, device=dev)
-    lib = _build.load(source)
-    fn = getattr(lib, symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, *(ctypes.c_int for _ in extra),
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
+    lib = _build.load(source, SIGNATURES[source])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
+        err = getattr(lib, symbol)(
             chars_t.data_ptr(), term_lens.data_ptr(), n,
             queries.data_ptr(), query_lens.data_ptr(), q, *extra,
             dist.data_ptr(), prefix.data_ptr(), is_prefix.data_ptr(), stream,
         )
     if err != 0:
-        lib.veloci_cuda_error_string.restype = ctypes.c_char_p
-        lib.veloci_cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.veloci_cuda_error_string(err).decode()
         raise RuntimeError(f"{symbol} kernel launch failed: {msg} ({err})")
     return dist, prefix, is_prefix

@@ -1,10 +1,13 @@
-"""The index on one device: sweep matrices and the combined posting CSR.
+"""The index on the host and on one device.
 
-Counterpart of ``DeviceField`` and ``Persistence.device_combined``
-(``veloci_tpu/persistence.py:111-393, 677-750, 784-878``) and of the
-directory reader ``Persistence.load`` (``:553-598``). The host structures
-(term dictionaries, CSR columns) are the reference package's own classes,
-reached through :mod:`veloci_tpu_torch._host`; nothing here imports JAX.
+:class:`Persistence` is the host half of ``veloci_tpu/persistence.py``
+(``Persistence.from_built``, ``save``, the directory reader ``load`` and the
+accessors the query generator calls, ``:396-670``, and
+``combined_host_csr``, ``:784-834``): the same index directory format, so
+either package reads what the other wrote. :class:`TorchIndex` is the
+counterpart of ``DeviceField`` and ``Persistence.device_combined``
+(``:111-393, 677-750, 835-878``): the sweep matrices and the combined
+posting CSR on one torch device.
 
 Lengths are runtime values: the device arrays carry no tile padding and no
 slice-window tail padding, because the port's kernels and reads bound
@@ -14,17 +17,21 @@ themselves.
 from __future__ import annotations
 
 import json
+import os
+import urllib.parse
 from collections import Counter
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import _host
+from .create import TEXTINDEX, TO_ANCHOR_ID_SCORE, BuiltIndex
+from .error import FstNotFoundError
+from .indices import AnchorScoreCsr, Csr, Direct, PhraseCsr, TermDictionary
 
 __all__ = [
-    "FieldSweep", "LongTerms", "TorchIndex", "long_term_rows", "read_persistence", "load_index",
+    "FieldSweep", "LongTerms", "Persistence", "TorchIndex", "long_term_rows", "load_index",
 ]
 
 _MANIFEST = "metaData.json"
@@ -32,10 +39,200 @@ _DOCSTORE = "docs.bin"
 # code points kept per long term: the host distance is 255 for a term of
 # 255 chars or more (``levenshtein_distance_host``), so 254 cover the rest
 LONG_WIDTH = 254
+_SCORE_SUFFIX = TEXTINDEX + TO_ANCHOR_ID_SCORE
+
+
+def _enc(name: str) -> str:
+    return urllib.parse.quote(name, safe="")
+
+
+def _dec(name: str) -> str:
+    return urllib.parse.unquote(name)
+
+
+class Persistence:
+    """An index on the host: metadata, term dictionaries and the packed
+    columns, as a build leaves them or as an index directory holds them."""
+
+    def __init__(self) -> None:
+        self.num_docs: int = 0
+        self.bytes_indexed: int = 0
+        self.columns: Dict[str, dict] = {}
+        self.dictionaries: Dict[str, TermDictionary] = {}
+        self.key_value_stores: Dict[str, Csr | Direct] = {}
+        self.anchor_scores: Dict[str, AnchorScoreCsr] = {}
+        self.phrase_indices: Dict[str, PhraseCsr] = {}
+        self.boost_stores: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        self.doc_store_bytes: Optional[bytes] = None
+        self.path: Optional[str] = None
+
+    @classmethod
+    def from_built(cls, built: BuiltIndex) -> "Persistence":
+        p = cls()
+        p.num_docs = built.num_docs
+        p.bytes_indexed = built.bytes_indexed
+        p.columns = built.columns
+        p.dictionaries = built.dictionaries
+        p.key_value_stores = built.key_value_stores
+        p.anchor_scores = built.anchor_scores
+        p.phrase_indices = built.phrase_indices
+        p.boost_stores = built.boost_stores
+        p.doc_store_bytes = built.doc_store
+        return p
+
+    def save(self, directory: str) -> None:
+        """Write the index directory; manifest written last (atomic-ish)."""
+        d = Path(directory)
+        d.mkdir(parents=True, exist_ok=True)
+        if self.doc_store_bytes is not None:
+            (d / _DOCSTORE).write_bytes(self.doc_store_bytes)
+
+        def save_arr(name: str, arr: np.ndarray) -> None:
+            np.save(d / (_enc(name) + ".npy"), arr)
+
+        store_kinds: Dict[str, str] = {}
+        for path, store in self.key_value_stores.items():
+            if isinstance(store, Direct):
+                store_kinds[path] = "direct"
+                save_arr(path + "#direct", store.values)
+            else:
+                store_kinds[path] = "csr"
+                save_arr(path + "#offsets", store.offsets)
+                save_arr(path + "#values", store.values)
+        for path, store in self.anchor_scores.items():
+            store_kinds[path] = "anchor_score"
+            save_arr(path + "#offsets", store.offsets)
+            save_arr(path + "#anchors", store.anchors)
+            save_arr(path + "#scores", store.scores)
+        for path, store in self.phrase_indices.items():
+            store_kinds[path] = "phrase"
+            save_arr(path + "#keys", store.keys)
+            save_arr(path + "#offsets", store.offsets)
+            save_arr(path + "#values", store.values)
+        for path, (vals, present) in self.boost_stores.items():
+            store_kinds[path] = "boost"
+            save_arr(path + "#bvalues", vals)
+            save_arr(path + "#bpresent", present)
+        for field, dictionary in self.dictionaries.items():
+            save_arr(field + "#terms", dictionary.to_arrays()["term_bytes"])
+
+        manifest = {
+            "num_docs": self.num_docs,
+            "bytes_indexed": self.bytes_indexed,
+            "columns": self.columns,
+            "store_kinds": store_kinds,
+        }
+        # durability: fsync every index file, then the manifest, then the
+        # directory entry — the manifest only becomes visible once all data
+        # it references is on disk (reference sync_directory, create.rs:718,
+        # common/mod.rs:74; manifest-last at persistence.rs:363-366)
+        for f in d.iterdir():
+            if f.is_file() and f.name != _MANIFEST:
+                with open(f, "rb") as fh:
+                    os.fsync(fh.fileno())
+        tmp = d / (_MANIFEST + ".tmp")
+        tmp.write_text(json.dumps(manifest, ensure_ascii=False, indent=1))
+        with open(tmp, "rb") as fh:
+            os.fsync(fh.fileno())
+        os.replace(tmp, d / _MANIFEST)
+        try:
+            dfd = os.open(str(d), os.O_RDONLY)
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+        except OSError:
+            pass  # directory fsync unsupported on some filesystems
+
+    @classmethod
+    def load(cls, directory) -> "Persistence":
+        """Read an index directory (mmap-backed arrays)."""
+        d = Path(directory)
+        manifest = json.loads((d / _MANIFEST).read_text())
+        p = cls()
+        p.path = str(d)
+        p.num_docs = manifest["num_docs"]
+        p.bytes_indexed = manifest["bytes_indexed"]
+        p.columns = manifest["columns"]
+
+        def arr(name: str) -> np.ndarray:
+            return np.load(d / (_enc(name) + ".npy"), mmap_mode="r")
+
+        for path, kind in manifest["store_kinds"].items():
+            if kind == "direct":
+                p.key_value_stores[path] = Direct(values=arr(path + "#direct"))
+            elif kind == "csr":
+                p.key_value_stores[path] = Csr(
+                    offsets=arr(path + "#offsets"), values=arr(path + "#values")
+                )
+            elif kind == "anchor_score":
+                p.anchor_scores[path] = AnchorScoreCsr(
+                    offsets=arr(path + "#offsets"), anchors=arr(path + "#anchors"),
+                    scores=arr(path + "#scores"),
+                )
+            elif kind == "phrase":
+                p.phrase_indices[path] = PhraseCsr(
+                    keys=arr(path + "#keys"), offsets=arr(path + "#offsets"),
+                    values=arr(path + "#values"),
+                )
+            elif kind == "boost":
+                p.boost_stores[path] = (arr(path + "#bvalues"), arr(path + "#bpresent"))
+        for f in d.glob("*%23terms.npy"):
+            field = _dec(f.name[: -len(".npy")])[: -len("#terms")]
+            p.dictionaries[field] = TermDictionary.from_arrays({"term_bytes": np.load(f)})
+        docs = d / _DOCSTORE
+        if docs.exists():
+            p.doc_store_bytes = docs.read_bytes()
+        return p
+
+    def get_all_fields(self) -> List[str]:
+        return list(self.columns.keys())
+
+    def has_token_to_anchor(self, path: str) -> bool:
+        return path in self.anchor_scores
+
+    def get_dictionary(self, field: str) -> TermDictionary:
+        field = field[: -len(TEXTINDEX)] if field.endswith(TEXTINDEX) else field
+        dictionary = self.dictionaries.get(field)
+        if dictionary is None:
+            raise FstNotFoundError(field)
+        return dictionary
+
+    def combined_host_csr(self):
+        """Every searchable field's postings concatenated under global term
+        ids ``key_base[field] + token_id``: ``(offsets int64 [nk + 2]``
+        (double tail sentinel), ``anchors``, ``scores`` (u16, raw x100),
+        ``key_base)``, or None with no postings."""
+        parts = [
+            (path[: -len(_SCORE_SUFFIX)], self.anchor_scores[path])
+            for path in sorted(self.anchor_scores)
+            if path.endswith(_SCORE_SUFFIX)
+        ]
+        if not parts:
+            return None
+        key_base: Dict[str, Tuple[int, int]] = {}
+        off_parts, anc_parts, sc_parts = [], [], []
+        nnz_base = 0
+        kbase = 0
+        for field, store in parts:
+            ho = np.asarray(store.offsets, dtype=np.int64)
+            key_base[field] = (kbase, store.num_keys)
+            off_parts.append(ho[:-1] + nnz_base)
+            nnz_base += int(ho[-1])
+            kbase += store.num_keys
+            anc_parts.append(store.anchors)
+            sc_parts.append(store.scores)
+        off_parts.append(np.array([nnz_base, nnz_base], dtype=np.int64))
+        anchors = np.concatenate(anc_parts) if nnz_base else np.zeros(0, np.int64)
+        scores = np.concatenate(sc_parts) if nnz_base else np.zeros(0, np.uint16)
+        return np.concatenate(off_parts), anchors, scores, key_base
 
 
 class FieldSweep(NamedTuple):
-    """One field's fuzzy-sweep matrix on the device."""
+    """One field's fuzzy-sweep matrix on the device. A field's rows are
+    sorted by length (stably), so the terms a warp of the full-width kernel
+    sweeps have like lengths and its walk, which runs to the warp's longest
+    term, wastes few steps; ``sweep_ids`` maps each row back to its term."""
 
     chars_t: torch.Tensor  # [32, M] uint16, lowercase codepoints, transposed
     lengths: torch.Tensor  # [M] int32 (0 = pad row, never matches)
@@ -88,15 +285,16 @@ def _device(device) -> torch.device:
 class TorchIndex:
     """An index on one torch device: per-field sweep matrices and the
     combined global-key posting CSR (``key_base[field] + term id``), with
-    the host term dictionaries the field search reads."""
+    the host term dictionaries the field search reads and the field list
+    the query generator expands terms over."""
 
     def __init__(
-        self, *, num_docs, dictionaries, fields, long_terms, host_offsets, offsets,
-        packed, key_base, device, persistence=None,
+        self, *, num_docs, all_fields, dictionaries, fields, long_terms, host_offsets, offsets,
+        packed, key_base, device,
     ) -> None:
         self.device = device
-        self.persistence = persistence  # the host Persistence, for the query generator
         self.num_docs = int(num_docs)
+        self.all_fields = list(all_fields)  # the index's columns, in manifest order
         self.dictionaries = dictionaries  # field -> TermDictionary
         self.fields: Dict[str, FieldSweep] = fields
         self.long_terms: Dict[str, LongTerms] = long_terms  # see long_term_rows
@@ -109,17 +307,41 @@ class TorchIndex:
 
     @classmethod
     def from_reference_arrays(
-        cls, *, num_docs, dictionaries, fields, offsets, anchors, scores, key_base,
-        device, persistence=None,
+        cls, *, num_docs, all_fields, term_bytes, fields, offsets, anchors, scores, key_base,
+        device="cuda",
     ) -> "TorchIndex":
-        """Build the index on ``device`` from the reference package's host
-        arrays: ``fields`` maps each field to ``(chars [M, 32] uint16,
-        lengths [M] int32, sweep_ids [M] int32)`` (``DeviceField``'s
-        ``_chars_host``, ``_lengths_host``, ``_sweep_ids_host``, or
-        ``TermDictionary.char_matrix_compact()``); ``offsets``, ``anchors``,
-        ``scores`` and ``key_base`` are ``Persistence.combined_host_csr()``'s
-        (scores as the raw u16 x100 values); ``persistence``, the host
-        ``Persistence``, answers the query generator's field questions."""
+        """Build the index on ``device`` from host arrays: ``all_fields``
+        the index's column names in manifest order; ``term_bytes`` each
+        field's packed dictionary (``TermDictionary.to_arrays()``'s
+        ``term_bytes``, the array an index directory stores); ``fields``
+        each field's ``(chars [M, 32] uint16, lengths [M] int32, sweep_ids
+        [M] int32)`` (the reference's ``DeviceField`` host arrays, or
+        ``char_matrix_compact()``); ``offsets``, ``anchors``, ``scores``
+        and ``key_base`` the combined CSR of ``combined_host_csr()`` (scores
+        as the raw u16 x100 values)."""
+        dictionaries = {
+            f: TermDictionary.from_arrays({"term_bytes": np.asarray(b)})
+            for f, b in term_bytes.items()
+        }
+        return cls._upload(
+            num_docs, all_fields, dictionaries, fields, offsets, anchors, scores, key_base, device
+        )
+
+    @classmethod
+    def from_persistence(cls, pers: Persistence, device="cuda") -> "TorchIndex":
+        """Upload a host :class:`Persistence` (built or read)."""
+        comb = pers.combined_host_csr()
+        if comb is None:
+            comb = np.zeros(2, np.int64), np.zeros(0, np.int32), np.zeros(0, np.uint16), {}
+        return cls._upload(
+            pers.num_docs, pers.get_all_fields(), dict(pers.dictionaries),
+            {f: d.char_matrix_compact() for f, d in pers.dictionaries.items()}, *comb, device,
+        )
+
+    @classmethod
+    def _upload(
+        cls, num_docs, all_fields, dictionaries, fields, offsets, anchors, scores, key_base, device,
+    ) -> "TorchIndex":
         dev = _device(device)
 
         def up(arr, dtype):
@@ -137,7 +359,11 @@ class TorchIndex:
                 lengths, ids,
             )
 
-        sweeps = {f: sweep(*arrays) for f, arrays in fields.items()}
+        def by_length(chars, lengths, sweep_ids):
+            order = np.argsort(lengths, kind="stable")
+            return np.asarray(chars)[order], np.asarray(lengths)[order], np.asarray(sweep_ids)[order]
+
+        sweeps = {f: sweep(*by_length(*arrays)) for f, arrays in fields.items()}
         long_terms = {f: long(*long_term_rows(d)) for f, d in dictionaries.items()}
         host_offsets = np.asarray(offsets, dtype=np.int64)
         scores01 = np.asarray(scores).astype(np.float32) / np.float32(100.0)
@@ -145,88 +371,26 @@ class TorchIndex:
             [np.asarray(anchors).astype(np.int32), scores01.view(np.int32)], axis=1
         )
         return cls(
-            num_docs=num_docs, dictionaries=dictionaries, fields=sweeps,
+            num_docs=num_docs, all_fields=all_fields, dictionaries=dictionaries, fields=sweeps,
             long_terms=long_terms, host_offsets=host_offsets, offsets=up(host_offsets, np.int64),
             packed=up(packed, np.int32), key_base=dict(key_base), device=dev,
-            persistence=persistence,
         )
 
-    @classmethod
-    def from_persistence(cls, pers, device) -> "TorchIndex":
-        """Upload a host ``Persistence`` (built or read, never device-loaded)."""
-        comb = pers.combined_host_csr()
-        if comb is None:
-            offsets = np.zeros(2, np.int64)
-            anchors, scores, key_base = np.zeros(0, np.int32), np.zeros(0, np.uint16), {}
-        else:
-            ns, key_base = comb
-            offsets, anchors, scores = ns.offsets, ns.anchors, ns.scores
-        return cls.from_reference_arrays(
-            num_docs=pers.num_docs,
-            dictionaries=dict(pers.dictionaries),
-            fields={f: d.char_matrix_compact() for f, d in pers.dictionaries.items()},
-            offsets=offsets, anchors=anchors, scores=scores, key_base=key_base,
-            device=device, persistence=pers,
-        )
-
-    def get_all_fields(self):
+    def get_all_fields(self) -> List[str]:
         """The index's columns (``search_query`` expands terms over them)."""
-        return self.persistence.get_all_fields()
+        return self.all_fields
 
     def has_token_to_anchor(self, path: str) -> bool:
         """Whether ``path`` has postings (``search_query``'s field filter)."""
-        return self.persistence.has_token_to_anchor(path)
+        return path.endswith(_SCORE_SUFFIX) and path[: -len(_SCORE_SUFFIX)] in self.key_base
 
-    def get_dictionary(self, field: str):
+    def get_dictionary(self, field: str) -> TermDictionary:
         dictionary = self.dictionaries.get(field)
         if dictionary is None:
-            raise _host.error.FstNotFoundError(field)
+            raise FstNotFoundError(field)
         return dictionary
 
 
-def read_persistence(directory):
-    """Read an index directory into a host ``Persistence`` (mmap-backed
-    arrays), as ``Persistence.load`` does but without its JAX set-up."""
-    idx = _host.indices
-    d = Path(directory)
-    manifest = json.loads((d / _MANIFEST).read_text())
-    p = _host.persistence.Persistence()
-    p.path = str(d)
-    p.num_docs = manifest["num_docs"]
-    p.bytes_indexed = manifest["bytes_indexed"]
-    p.columns = manifest["columns"]
-
-    def arr(name: str) -> np.ndarray:
-        return np.load(d / (_host.persistence._enc(name) + ".npy"), mmap_mode="r")
-
-    for path, kind in manifest["store_kinds"].items():
-        if kind == "direct":
-            p.key_value_stores[path] = idx.Direct(values=arr(path + "#direct"))
-        elif kind == "csr":
-            p.key_value_stores[path] = idx.Csr(
-                offsets=arr(path + "#offsets"), values=arr(path + "#values")
-            )
-        elif kind == "anchor_score":
-            p.anchor_scores[path] = idx.AnchorScoreCsr(
-                offsets=arr(path + "#offsets"), anchors=arr(path + "#anchors"),
-                scores=arr(path + "#scores"),
-            )
-        elif kind == "phrase":
-            p.phrase_indices[path] = idx.PhraseCsr(
-                keys=arr(path + "#keys"), offsets=arr(path + "#offsets"),
-                values=arr(path + "#values"),
-            )
-        elif kind == "boost":
-            p.boost_stores[path] = (arr(path + "#bvalues"), arr(path + "#bpresent"))
-    for f in d.glob("*%23terms.npy"):
-        field = _host.persistence._dec(f.name[: -len(".npy")])[: -len("#terms")]
-        p.dictionaries[field] = idx.TermDictionary.from_arrays({"term_bytes": np.load(f)})
-    docs = d / _DOCSTORE
-    if docs.exists():
-        p.doc_store_bytes = docs.read_bytes()
-    return p
-
-
-def load_index(directory, device) -> TorchIndex:
+def load_index(directory, device="cuda") -> TorchIndex:
     """Read an index directory and upload it to ``device``."""
-    return TorchIndex.from_persistence(read_persistence(directory), device)
+    return TorchIndex.from_persistence(Persistence.load(directory), device)

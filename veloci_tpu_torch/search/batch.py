@@ -32,7 +32,8 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from .._host import error, request as request_mod
+from ..error import InvalidRequestError
+from ..query.request import SearchRequest
 from ..ops.search_step import batched_single_term_topk
 from ..ops.tree_step import batched_tree_topk, batched_tree_topk_single_slot
 from .field_search import (
@@ -45,7 +46,6 @@ from .result import Hit, SearchResult
 
 __all__ = ["search_batch"]
 
-SearchRequest = request_mod.SearchRequest
 SEARCH, OR, AND = SearchRequest.SEARCH, SearchRequest.OR, SearchRequest.AND
 
 # gathered posting rows per sort: bounds the device memory of one sort
@@ -321,7 +321,7 @@ def _plan(request):
     """Admit a request: ("flat", groups) or ("deep", subtrees), or raise for
     shapes outside the slice."""
     if request.search_req is None:
-        raise error.InvalidRequestError("search_req is required in search")
+        raise InvalidRequestError("search_req is required in search")
     for attr, item in _REQUEST_FEATURES:
         if getattr(request, attr):
             raise _unsupported(f"request {attr!r}", item)

@@ -15,7 +15,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .._host import create, indices
+from ..create import TEXTINDEX
+from ..indices import MAX_TERM_CHARS
 from ..ops.levenshtein import (
     MAX_QUERY_CHARS,
     encode_query,
@@ -52,7 +53,7 @@ def get_default_score_for_distance(distance, prefix_matches):
 
 def leaf_field(part) -> str:
     path = part.path
-    return path[: -len(create.TEXTINDEX)] if path.endswith(create.TEXTINDEX) else path
+    return path[: -len(TEXTINDEX)] if path.endswith(TEXTINDEX) else path
 
 
 def clamped_distance(part) -> int:
@@ -81,7 +82,7 @@ def _long_matches(long, items):
     none = (np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, bool))
     if n == 0 or not items:
         return [none] * len(items)
-    swept = [it for it in items if it[2] and len(it[0]) + it[1] <= indices.MAX_TERM_CHARS]
+    swept = [it for it in items if it[2] and len(it[0]) + it[1] <= MAX_TERM_CHARS]
     swept = dict(zip(swept, (rows for rows, _d, _p in _select(long.prefixes, swept)))) if swept else {}
     cand = []
     for it in items:
@@ -90,7 +91,7 @@ def _long_matches(long, items):
             cand.append(swept[it])
         elif starts_with:
             cand.append(np.arange(n, dtype=np.int64))
-        elif len(lower_term) + distance > indices.MAX_TERM_CHARS:
+        elif len(lower_term) + distance > MAX_TERM_CHARS:
             cand.append(np.flatnonzero(long.host_lengths <= len(lower_term) + distance))
         else:
             cand.append(np.empty(0, np.int64))
