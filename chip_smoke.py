@@ -27,22 +27,27 @@ Phases (any failure is an exception and a non-zero exit):
 4. slice  -- a jmdict-shaped 200,000-document corpus (the generator of
              bench.py's build_corpus, seed 1234) is built with the port's
              builder and native indexer, saved, read back and uploaded.
-             Two main paths through ``search_batch``: single leaves (batches
-             of 256 exact, ~1 and ~2 requests, and single fuzzy requests),
-             then query trees (batches of 256 query-string requests from the
-             query generator -- two or three zipf words, some of them ``*``
-             wildcards, each pair joined by AND or OR -- and of 256 explicit AND-of-ORs
-             fuzzy requests). Each path runs with the kernels' launch
-             counters set to 0 just before it and read just after; each
-             kernel the path needs must have launched. Every full-width
+             Three main paths through ``search_batch``: single leaves
+             (batches of 256 exact, ~1 and ~2 requests, and single fuzzy
+             requests), then query trees (batches of 256 query-string
+             requests from the query generator -- two or three zipf words,
+             some of them ``*`` wildcards, each pair joined by AND or OR --
+             and of 256 explicit AND-of-ORs fuzzy requests), then the
+             ``generic`` mix (batches of 256 generator requests with facets
+             on cat, phrase boosts, a Log10 popularity boost and, on half of
+             them, a filter on one or two cat values). Each path runs with
+             the kernels' launch counters set to 0 just before it and read
+             just after; each kernel the path needs must have launched. Every full-width
              launch of the query_string mix is logged (field, N, Q, mean
              query length), and the kernel is checked and timed again on
              each field's launch at its median Q, on its own inputs. Answers are checked for shape and
              order, and requests are answered again on the CPU through the
-             plain versions from the same index: ids, order, num_hits and f32
-             score bits must be identical.
+             plain versions from the same index: ids, order, num_hits, f32
+             score bits and facet lists must be identical.
 5. profile -- one batch of each mix under torch.profiler: the device's busy
-             share of the batch's wall time and its largest kernels.
+             share of the batch's wall time and its largest kernels; and the
+             single-query banded launch (B2) timed by its kernel's own
+             device events, beside its CUDA-event time.
 """
 
 from __future__ import annotations
@@ -194,6 +199,35 @@ def request_mixes(vocab, probs, rng, fields):
             batch.append({"search_req": {"and": {"queries": groups}}, "top": 10})
         batches.append(batch)
     mixes["and_of_ors_fuzzy"] = batches
+    # the server's `search?query=...&facets=cat&filter=...` front end with a
+    # popularity boost: query-string words as above, one word in four with
+    # ~1, facets on cat, phrase boosts, and a filter on one or two cat
+    # values on half of the requests (its own seed: the other mixes keep
+    # their requests)
+    grng = np.random.default_rng(6)
+    batches = []
+    for _ in range(TIMED_BATCHES):
+        batch = []
+        for _q in range(BATCH):
+            words = []
+            for w in grng.choice(vocab, size=int(grng.integers(2, 4)), p=probs):
+                w = str(w)
+                if grng.random() < 1 / 3:
+                    w = w[: int(grng.integers(4, 7))] + "*"
+                elif grng.random() < 3 / 8:
+                    w += "~1"
+                words.append(w)
+            query = words[0]
+            for w in words[1:]:
+                query += (" AND " if grng.random() < 0.5 else " ") + w
+            params = {"search_term": query, "facets": ["cat"], "phrase_pairs": True,
+                      "boost_queries": [{"path": "pop", "boost_fun": "Log10", "param": 1}]}
+            if grng.random() < 0.5:
+                cats = grng.choice(16, size=int(grng.integers(1, 3)), replace=False)
+                params["filter"] = " OR ".join(f"cat:c{c}" for c in cats)
+            batch.append({"generator": params})
+        batches.append(batch)
+    mixes["generic"] = batches
     return mixes
 
 
@@ -387,6 +421,26 @@ def kernel_phase(sweep, encode_query, dictionaries, rng, report, baseline):
     return err, times
 
 
+def kernel_only_ms(fn, kernel: str, calls: int = 20) -> float:
+    """Mean device time of ``kernel``'s own events per call of ``fn`` under
+    torch.profiler: the kernel alone, without the host launch path a CUDA
+    event pair around the call also holds. NaN if the profiler saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if getattr(e, "device_type", None) == DeviceType.CUDA and kernel in e.key
+    )
+    return total_us / 1e3 / calls if total_us else float("nan")
+
+
 def profile_phase(vt, index, requests_of, make, report):
     """One batch of each mix under torch.profiler: the share of the wall
     time the device was busy, and the kernels that took it (the profiler's
@@ -417,7 +471,7 @@ def profile_phase(vt, index, requests_of, make, report):
 
 
 def check_result(res, req):
-    top = req["top"] if isinstance(req, dict) else 10
+    top = req.get("top", 10) if isinstance(req, dict) else 10
     assert 0 <= len(res.data) <= top and res.num_hits >= len(res.data), res
     scores = np.array([h.score for h in res.data], dtype=np.float64)
     ids = np.array([h.id for h in res.data], dtype=np.int64)
@@ -428,7 +482,8 @@ def check_result(res, req):
 
 
 def result_key(res):
-    return res.num_hits, [(h.id, np.float32(h.score).view(np.int32).item()) for h in res.data]
+    return (res.num_hits, [(h.id, np.float32(h.score).view(np.int32).item()) for h in res.data],
+            res.facets)
 
 
 def record_full_launches(field_search, index, calls):
@@ -504,6 +559,7 @@ def main() -> None:
     parser.add_argument("--compare-full", type=Path, default=None,
                         help="another full_levenshtein.cu to time against the tree's")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT))
@@ -597,9 +653,12 @@ def main() -> None:
     ]
 
     def make(spec, idx):
-        """A request dict, or a query string through the query generator."""
+        """A request dict, or a query string or generator parameters through
+        the query generator."""
         if isinstance(spec, str):
             return vt.search_query(idx, vt.SearchQueryGeneratorParameters(search_term=spec))
+        if "generator" in spec:
+            return vt.search_query(idx, vt.SearchQueryGeneratorParameters.from_dict(spec["generator"]))
         return vt.Request.from_dict(spec)
 
     for name, batches in mixes.items():  # warm-up: first-touch allocations
@@ -628,6 +687,8 @@ def main() -> None:
         ("single_leaf", ("exact", "fuzzy_d1", "fuzzy_d2", "single_fuzzy_d2"),
          ("levenshtein_sweep_banded_batch", "levenshtein_sweep_banded")),
         ("query_trees", ("query_string", "and_of_ors_fuzzy"),
+         ("levenshtein_sweep_banded_batch", "levenshtein_sweep_full_batch")),
+        ("generic", ("generic",),
          ("levenshtein_sweep_banded_batch", "levenshtein_sweep_full_batch")),
     )
     answers = {}
@@ -660,6 +721,9 @@ def main() -> None:
             if path_launches[path][k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched by the main path {path}")
     gc.callbacks.remove(on_gc)
+    gen = path_launches["generic"]
+    log(f"generic mix launches: B1 (banded, batch) {gen['levenshtein_sweep_banded_batch']}, "
+        f"B3 (full-width) {gen['levenshtein_sweep_full_batch']}")
     launches = {k: sum(p[k] for p in path_launches.values()) for k in kernel_fns}
     log(f"main path launches: {launches}; routes: {dict(index.path_counts)}")
     log(f"main path: {len(gc_full_ms)} full garbage collections, "
@@ -688,7 +752,7 @@ def main() -> None:
     for name, results in answers.items():
         if name not in mixes:
             n_check = len(results)
-        elif name in ("query_string", "and_of_ors_fuzzy"):
+        elif name in ("query_string", "and_of_ors_fuzzy", "generic"):
             n_check = CPU_CHECKED_TREE_BATCHES
         else:
             n_check = CPU_CHECKED_BATCHES
@@ -714,6 +778,17 @@ def main() -> None:
             f"p99 {row['p99_ms']:.3f} ms, {row['qps']:.1f} QPS")
 
     profile_phase(vt, index, requests_of, make, report)
+    enc, n_chars = levenshtein.encode_query(mutate(str(title_words[len(title_words) // 3]), 1, rng))
+    b2_query = torch.from_numpy(enc).cuda()
+    b2_qlen = torch.tensor([n_chars], dtype=torch.int32, device="cuda")
+    b2_kernel_ms = kernel_only_ms(
+        lambda: levenshtein_sweep.levenshtein_sweep_banded(
+            title.chars_t, title.lengths, b2_query, b2_qlen, band=2),
+        "banded_sweep_kernel",
+    )
+    report["b2_kernel_only_ms"] = b2_kernel_ms
+    log(f"B2 at title x 1, band 2: kernel alone (profiler device events) {b2_kernel_ms:.4f} ms, "
+        f"call (CUDA events) {kernel_times[('title', 1, 2)][0]:.4f} ms")
 
     # B1 and B2 at the kernel phase's title shapes (band 2, Q 256 and 1); B3
     # at the main path's most frequent full-width shape, on its own inputs.
@@ -746,6 +821,7 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
 
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -136,3 +136,43 @@ def test_search_on_card_equals_cpu(card):
             assert a.num_hits == b.num_hits
             assert [(h.id, h.score) for h in a.data] == [(h.id, h.score) for h in b.data]
     assert on_card.path_counts["batched_tree_deep"] > 0
+
+
+@pytest.mark.cuda
+def test_generic_route_on_card_equals_cpu(card):
+    """Filters, boost columns, facets and phrase boosts on the card against
+    the CPU plain path: ids, scores, num_hits and facet lists identical."""
+    rng = np.random.default_rng(12)
+    vocab = [f"w{i:x}{'abcdefgh'[i % 8] * (1 + i % 7)}" for i in range(800)]
+    docs = "\n".join(
+        '{"title": "pa pb %s", "cat": "c%d", "pop": %d}'
+        % (" ".join(rng.choice(vocab, size=5)), rng.integers(16), rng.integers(0, 1000))
+        for _ in range(3000)
+    )
+    config = '["*GLOBAL*"]\nfeatures = ["All"]\n["cat"]\nfacet = true\n["pop".boost]\nboost_type = "f32"\n'
+    pers = Persistence.from_built(create_indices_from_str(docs, config))
+    on_cpu = TorchIndex.from_persistence(pers, "cpu")
+    on_card = TorchIndex.from_persistence(pers, card)
+    leaf = {"search": {"terms": ["w1bb"], "path": "title"}}
+    cat3 = {"search": {"terms": ["c3"], "path": "cat"}}
+    extras = {"facets": [{"field": "cat", "top": 5}], "boost": [{"path": "pop", "boost_fun": "Log10", "param": 1}],
+              "phrase_boosts": [{"search1": {"terms": ["pa"], "path": "title"},
+                                 "search2": {"terms": ["pb"], "path": "title"}}]}
+    dicts = [
+        dict({"search_req": leaf}, filter=cat3),
+        dict({"search_req": {"search": {"terms": ["w2ccc"], "path": "title", "levenshtein_distance": 2}}},
+             **extras),
+        dict({"search_req": {"and": {"queries": [{"search": {"terms": ["pa"], "path": "title"}}, {"or": {
+            "queries": [leaf, {"search": {"terms": ["w1a"], "path": "title", "starts_with": True,
+                                          "levenshtein_distance": 1}}]}}]}}},
+             filter={"or": {"queries": [cat3, {"search": {"terms": ["c13"], "path": "cat",
+                                                          "levenshtein_distance": 1}}]}}, **extras),
+    ]
+    reqs = [Request.from_dict(d) for d in dicts]
+    reqs += [search_query(on_card, SearchQueryGeneratorParameters(
+        search_term="pa pb w1a*", facets=["cat"], phrase_pairs=True, filter="cat:c3 OR cat:c7"))]
+    for batch in (reqs, reqs[1:2]):
+        for a, b in zip(search_batch(batch, on_card), search_batch(batch, on_cpu)):
+            assert a.num_hits == b.num_hits and a.facets == b.facets
+            assert [(h.id, h.score) for h in a.data] == [(h.id, h.score) for h in b.data]
+    assert on_card.path_counts["batched_generic"] == len(reqs) + 1

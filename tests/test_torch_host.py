@@ -8,16 +8,26 @@
   ``search_query`` build equal request trees.
 * The bundled stopword lists are equal.
 
-Tolerance: exact, everywhere. Inputs are made from a seed with numpy."""
+Tolerance: exact, everywhere. Inputs are made from a seed with numpy.
+
+The reference compresses ``docs.bin`` with its native LZ codec when its
+library loads and with zlib otherwise. Its loader builds the library into
+one temporary file name that every process shares and remembers a failed
+attempt for the life of the process, so a process that loses a race of
+several cold builds writes zlib blocks while the port, which has its
+library, writes LZ blocks. The builder test therefore loads the
+reference's library again once the build that won has put it in place."""
 
 import dataclasses
 import json
+import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 from veloci_tpu import Persistence as RefPersistence
+from veloci_tpu import native as ref_native
 from veloci_tpu import Request as RefRequest
 from veloci_tpu.create import create_indices_from_str as ref_create
 from veloci_tpu.query.generator import SearchQueryGeneratorParameters as RefParams
@@ -31,6 +41,7 @@ from veloci_tpu_torch import (
     create_indices_from_str,
     search_query,
 )
+from veloci_tpu_torch import native as port_native
 from veloci_tpu_torch.search import stopwords
 
 VOCAB = ["hello", "help", "hells", "world", "Wörld", "x" * 40, "日本語", "a-b", "the", "Haus",
@@ -63,9 +74,30 @@ CONFIGS = {
 }
 
 
+@pytest.fixture(scope="module")
+def reference_library():
+    """The reference's native library, loaded again in this process when its
+    first attempt lost a race of concurrent cold builds: wait (at most 10 s)
+    for the winner's atomic rename to put the library in place, forget the
+    failed attempt, and load (which builds the library if it is still
+    missing)."""
+    if not ref_native.native_available() and port_native.native_available():
+        so_path = ref_native._so_path()
+        deadline = time.monotonic() + 10.0
+        while not so_path.exists() and time.monotonic() < deadline:
+            time.sleep(0.1)
+        ref_native._LIB, ref_native._LIB_TRIED = None, False
+        ref_native.native_available()
+
+
 @pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
 @pytest.mark.parametrize("kind", list(CONFIGS))
-def test_builder_writes_the_reference_index(tmp_path, kind, native):
+def test_builder_writes_the_reference_index(tmp_path, kind, native, reference_library):
+    assert ref_native.lz_available() == port_native.lz_available(), (
+        "the reference and the port disagree on the native LZ codec, so their docs.bin "
+        "blocks differ (zlib, codec byte 0, against LZ, codec byte 1): the reference's "
+        "native library did not load in this process"
+    )
     data, config = _corpus(kind), CONFIGS[kind]
     ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
     RefPersistence.from_built(ref_create(data, config, use_native=native)).save(str(ref_dir))

@@ -261,25 +261,21 @@ def test_sweep_entry_points_run_on_cpu(built):
     assert indexes["disk"].fields["title"].chars_t.dtype == torch.uint16
 
 
+# the A6 shapes the port answers (filter, phrase_boosts, token_value,
+# filter_on_tree) are parity cases of test_torch_generic.py; a boost or facet
+# on "nr" (no boost column; more facet values than the reference's gate)
+# goes to the reference's per-request executor, so the port raises (A7)
 OUT_OF_SLICE = {
-    "filter": dict(_leaf("w1bb"), filter={"search": {"terms": ["w1bb"], "path": "title"}}),
     "request_boost": dict(_leaf("w1bb"), boost=[{"path": "nr", "boost_fun": "Log10"}]),
     "facets": dict(_leaf("w1bb"), facets=[{"field": "nr"}]),
-    "phrase_boosts": dict(
-        _leaf("w1bb"),
-        phrase_boosts=[{"search1": {"terms": ["a"], "path": "title"},
-                        "search2": {"terms": ["b"], "path": "title"}}],
-    ),
     "why_found": dict(_leaf("w1bb"), why_found=True),
     "explain": dict(_leaf("w1bb"), explain=True),
     "regex": _leaf("w1.*", is_regex=True),
     "snippet": _leaf("w1bb", snippet=True),
     "leaf_options": _leaf("w1bb", options={"explain": True}),
-    "token_value": _leaf("w1bb", token_value={"path": "title"}),
     "two_terms": {"search_req": {"search": {"terms": ["a", "b"], "path": "title"}}},
     "four_alternations": _or(_and(_or(_and(_leaf("a"), _leaf("b")), _leaf("c")), _leaf("d")), _leaf("e")),
     "regex_in_and": _and(_leaf("w1bb"), _leaf("w1.*", is_regex=True)),
-    "filter_on_tree": dict(_or(_leaf("w1bb"), _leaf("w2ccc")), filter={"search": {"terms": ["w1bb"], "path": "title"}}),
     "two_terms_in_or": _or(_leaf("w1bb"), {"search_req": {"search": {"terms": ["a", "b"], "path": "title"}}}),
     "tree_node_options": {"search_req": {"and": {"queries": [_leaf("a")["search_req"], _leaf("b")["search_req"]],
                                                  "options": {"top": 3}}}},

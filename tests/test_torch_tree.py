@@ -8,7 +8,11 @@ Tolerance: the candidate anchors, their order and count are exact. Scores
 are bit-equal where every union sums at most two values (the f32 sum of two
 values does not depend on order); where a group has three or more slots, or
 an anchor three or more groups or terms, the reference's associative scan
-may round differently and the relative error is at most 1e-6."""
+may round differently and the relative error is at most 1e-6.
+
+Phrase boosts ride the rows as pseudo-rows (score -inf, the reference's
+``_PHRASE_SLOT``); anchors that repeat among them multiply by 5 ** g, bit
+for bit."""
 
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ import jax.numpy as jnp
 import torch
 
 from veloci_tpu.ops.tree_step import (
+    _PHRASE_SLOT,
     DEEP_GROUP_SHIFT,
     DEEP_SUB_SHIFT,
     DEEP_TERM_SHIFT,
@@ -25,7 +30,7 @@ from veloci_tpu.ops.tree_step import (
     tree_candidates as ref_tree_candidates,
     tree_candidates_deep as ref_tree_candidates_deep,
 )
-from veloci_tpu_torch.ops.tree_step import tree_candidates, tree_candidates_deep
+from veloci_tpu_torch.ops.tree_step import PHRASE_NG, tree_candidates, tree_candidates_deep
 
 NUM_DOCS = 300
 SLOT_BITS = 24  # every packed slot of the reference fits
@@ -34,6 +39,7 @@ CAP = 2048  # the reference's row capacity: pads are anchor NUM_DOCS, score -inf
 
 _ref_flat = jax.jit(ref_tree_candidates, static_argnums=(3,))
 _ref_deep = jax.jit(ref_tree_candidates_deep, static_argnums=(4,))
+PHRASE_BITS = 25  # the reference's phrase slot, 1 << 24, fits below 2**25
 
 
 def _pad(a, s, slot, *rest):
@@ -175,3 +181,87 @@ def test_empty_rows():
     e = torch.zeros(0, dtype=torch.int64)
     seg, a, f = tree_candidates(e, e, torch.zeros(0), e, torch.tensor([1]), NUM_DOCS, 4, 2)
     assert seg.numel() == a.numel() == f.numel() == 0
+
+
+def _with_phrase(rng, a, s, slot, *rest):
+    """Append phrase pseudo-rows: anchors drawn with repeats (g up to 3),
+    some where no term hits; -> rows and the reference's phrase marker."""
+    pa = rng.choice(np.concatenate([a[a < NUM_DOCS], rng.integers(0, NUM_DOCS, 20)]), size=40)
+    p = len(pa)
+    rows = (
+        np.concatenate([a, pa.astype(np.int32)]),
+        np.concatenate([s, np.full(p, -np.inf, np.float32)]),
+        np.concatenate([slot, np.full(p, _PHRASE_SLOT, np.int32)]),
+    )
+    extra = tuple(np.concatenate([r, np.full(p, v, r.dtype)]) for r, v in rest)
+    marker = np.concatenate([np.zeros(len(a), np.float32), np.ones(p, np.float32)])
+    return rows, extra, marker
+
+
+def _port_phrase(fn, queries, *args):
+    """As _port, with each query's rows carrying (rows, marker)."""
+    seg = torch.cat([torch.full((len(q[0][0]),), i, dtype=torch.int64) for i, q in enumerate(queries)])
+    a = torch.from_numpy(np.concatenate([q[0][0] for q in queries]).astype(np.int64))
+    s = torch.from_numpy(np.concatenate([q[0][1] for q in queries]))
+    slot = torch.from_numpy(((1 << PHRASE_BITS) - 1 - np.concatenate([q[0][2] for q in queries])).astype(np.int64))
+    phrase = torch.from_numpy(np.concatenate([q[1] for q in queries]) > 0)
+    out_seg, out_a, out_f = fn(seg, a, s, slot, *args, phrase=phrase)
+    out_seg, out_a, out_f = out_seg.numpy(), out_a.numpy(), out_f.numpy()
+    return [(out_a[out_seg == i], out_f[out_seg == i]) for i in range(len(queries))]
+
+
+def _phrase_pad(rows, marker, *rest):
+    padded = _pad(*rows, *rest)
+    n = CAP - len(marker)
+    return padded, jnp.asarray(np.concatenate([marker, np.zeros(n, np.float32)]))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_phrase_rows_multiply_by_five_per_group(seed):
+    """Two-level trees with phrase pseudo-rows at repeated anchors: each
+    candidate x 5 ** (its phrase rows), bit-equal to the reference."""
+    rng = np.random.default_rng(40 + seed)
+    queries, num_groups = [], []
+    for _q in range(QUERIES):
+        groups = int(rng.integers(1, 3))
+        term_slots = [(g << GROUP_SHIFT) | int(rng.integers(2)) for g in range(groups) for _t in range(2)]
+        rows, _extra, marker = _with_phrase(rng, *_rows(rng, term_slots))
+        queries.append((rows, marker))
+        num_groups.append(groups)
+    got = _port_phrase(tree_candidates, queries, torch.tensor(num_groups), NUM_DOCS, PHRASE_BITS, GROUP_SHIFT)
+    boosted = 0
+    for (rows, marker), ng, g in zip(queries, num_groups, got):
+        padded, pcnt = _phrase_pad(rows, marker)
+        want = _ref_candidates(*_ref_flat(*padded, NUM_DOCS, jnp.int32(ng), pcnt))
+        _compare(g, want, exact=True)
+        pa = rows[0][marker > 0]
+        boosted += sum(int((pa == x).sum()) >= 2 for x in g[0])
+    assert boosted > 0  # some candidates took 5 ** 2 or more
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_phrase_rows_deep(seed):
+    """The deep form with phrase pseudo-rows (their subtree gate never passes)."""
+    rng = np.random.default_rng(60 + seed)
+    queries, ngs = [], []
+    for _q in range(QUERIES):
+        term_slots, term_ng = [], []
+        for term in range(int(rng.integers(1, 3))):
+            n_groups = int(rng.integers(1, 3))
+            for g in range(n_groups):
+                term_slots.append((term << DEEP_TERM_SHIFT) | (g << DEEP_GROUP_SHIFT))
+                term_ng.append(n_groups)
+        a, s, slot = _rows(rng, term_slots)
+        ng_of = dict(zip(term_slots, term_ng))
+        ng = np.array([ng_of[int(x)] for x in slot], np.int64)
+        rows, (ng,), marker = _with_phrase(rng, a, s, slot, (ng, PHRASE_NG))
+        queries.append((rows, marker))
+        ngs.append(ng)
+    got = _port_phrase(
+        tree_candidates_deep, queries, torch.from_numpy(np.concatenate(ngs)), NUM_DOCS, PHRASE_BITS,
+        (DEEP_TERM_SHIFT, DEEP_SUB_SHIFT, DEEP_GROUP_SHIFT),
+    )
+    for (rows, marker), ng, g in zip(queries, ngs, got):
+        padded, pcnt = _phrase_pad(rows, marker, ng.astype(np.float32))
+        want = _ref_candidates(*_ref_deep(*padded, NUM_DOCS, pcnt))
+        _compare(g, want, exact=False)

@@ -9,9 +9,10 @@ same index files and building the same request trees.
 
 Current slice: :func:`search_batch` over requests whose tree is a search
 leaf, a flat OR or AND, an AND of ORs, or an OR of such ANDs, with leaves
-that are exact, fuzzy at any distance, or ``starts_with`` -- which covers
-the query generator's output for query strings with ``*`` wildcards. The
-Levenshtein sweeps are hand-written CUDA kernels
+that are exact, fuzzy at any distance, or ``starts_with``, with or without
+token-value boosts -- which covers the query generator's output for query
+strings with ``*`` wildcards -- and with filters, boost columns, facets and
+phrase boosts. The Levenshtein sweeps are hand-written CUDA kernels
 (``csrc/banded_levenshtein.cu``, ``csrc/full_levenshtein.cu``). Other
 request shapes raise ``NotImplementedError``.
 
@@ -24,7 +25,7 @@ An index is built with ``Persistence.from_built(create_indices_from_str(ndjson,
 config))`` and written with ``Persistence.save(directory)``.
 """
 
-from .create import create_indices_from_str
+from .create import add_token_values_to_tokens, create_indices_from_str
 from .persistence import Persistence, TorchIndex, load_index
 from .query.generator import SearchQueryGeneratorParameters, search_query
 from .query.request import Request
@@ -38,6 +39,7 @@ __all__ = [
     "SearchQueryGeneratorParameters",
     "SearchResult",
     "TorchIndex",
+    "add_token_values_to_tokens",
     "create_indices_from_str",
     "load_index",
     "search_batch",

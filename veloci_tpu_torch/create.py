@@ -33,6 +33,7 @@ import numpy as np
 
 from .config import FieldsConfig, FulltextIndexOptions, IndexCreationType, config_from_string
 from .doc_store import DocStoreWriter
+from .error import VelociError
 from .indices import (
     AnchorScoreCsr,
     Csr,
@@ -47,6 +48,7 @@ from .json_flatten import IDProvider, for_each_element, to_line_delimited
 __all__ = [
     "create_indices_from_str",
     "create_indices_from_docs",
+    "add_token_values_to_tokens",
     "calculate_token_score_for_entry",
 ]
 
@@ -62,6 +64,7 @@ ANCHOR_TO_TEXT_ID = ".anchor_to_text_id"
 BOOST_VALID_TO_VALUE = ".boost_valid_to_value"
 VALUE_ID_TO_ANCHOR = ".value_id_to_anchor"
 TEXTINDEX = ".textindex"
+TOKEN_VALUES = ".token_values"
 
 
 def calculate_token_score_for_entry(
@@ -760,3 +763,55 @@ def _pass3_pack(
             )
             out.key_value_stores[path + PARENT_TO_VALUE_ID] = csr
             add_meta(path, path + PARENT_TO_VALUE_ID, "KeyValue", "MultiValue", csr)
+
+
+def add_token_values_to_tokens(persistence, data_str: str, config_str: str) -> None:
+    """Post-hoc per-token boost column (reference
+    src/create/token_values_to_tokens.rs:26-82).
+
+    Looks each text up in the field dictionary (exact, case-sensitive) and
+    writes ``token_id -> f32`` under ``<path>.textindex.token_values
+    .boost_valid_to_value`` of the host :class:`Persistence`; upload the
+    index afterwards."""
+    data = json.loads(data_str)
+    cfg = json.loads(config_str)
+    path = cfg["path"]
+    dictionary = persistence.dictionaries.get(path)
+    if dictionary is None:
+        raise VelociError(f"no dictionary for path {path!r}")
+    keys: List[int] = []
+    vals: List[float] = []
+    for el in data:
+        if el.get("value") is None:
+            continue
+        tid = dictionary.get(el["text"])
+        if tid is not None:
+            keys.append(tid)
+            vals.append(float(el["value"]))
+    boost_path = path + TEXTINDEX + TOKEN_VALUES + BOOST_VALID_TO_VALUE
+    nk = _num_keys(keys)
+    values = np.zeros(nk, dtype=np.float32)
+    present = np.zeros(nk, dtype=bool)
+    if keys:
+        k = np.asarray(keys, dtype=np.int64)
+        values[k[::-1]] = np.asarray(vals, dtype=np.float32)[::-1]
+        present[k] = True
+    persistence.boost_stores[boost_path] = (values, present)
+    col = persistence.columns.setdefault(
+        path,
+        {
+            "name": path,
+            "has_fst": False,
+            "is_anchor_identity_column": False,
+            "textindex_metadata": {"num_text_ids": 0, "num_long_text_ids": 0, "options": {"tokenize": False}},
+            "indices": [],
+        },
+    )
+    col["indices"].append(
+        {
+            "path": boost_path,
+            "index_category": "Boost",
+            "index_cardinality": "SingleValue",
+            "is_empty": not keys,
+        }
+    )

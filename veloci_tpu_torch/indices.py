@@ -14,8 +14,8 @@ written by either package loads in the other:
   ``bisect``; id -> term is direct indexing; fuzzy matching is a sweep over
   the char matrix, see :mod:`veloci_tpu_torch.ops.levenshtein_sweep`).
 
-Only what the port's builder, reader and field search use is copied; the
-reference's per-key host readers are not.
+Only what the port's builder, reader, field search, filters, phrase boosts
+and facets use is copied; the reference's per-key host readers are not.
 """
 
 from __future__ import annotations
@@ -55,6 +55,24 @@ class Csr:
     def num_keys(self) -> int:
         return len(self.offsets) - 1
 
+    def get_values_multi(self, keys: np.ndarray) -> np.ndarray:
+        """Gather and concatenate values for many keys (vectorised)."""
+        keys = np.asarray(keys, dtype=np.int64)
+        keys = keys[(keys >= 0) & (keys < self.num_keys)]
+        starts = self.offsets[keys].astype(np.int64)
+        counts = self.offsets[keys + 1].astype(np.int64) - starts
+        return self.values[_run_positions(starts, counts)]
+
+
+def _run_positions(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """The positions of runs ``[start, start + count)``, concatenated."""
+    total = int(counts.sum())
+    out_starts = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=out_starts[1:])
+    idx = np.arange(total, dtype=np.int64)
+    seg = np.searchsorted(out_starts[1:], idx, side="right")
+    return starts[seg] + (idx - out_starts[seg])
+
 
 @dataclass
 class Direct:
@@ -87,6 +105,19 @@ class PhraseCsr:
     keys: np.ndarray  # uint64 [num_pairs], sorted, key = a << 32 | b
     offsets: np.ndarray  # uint64 [num_pairs + 1]
     values: np.ndarray  # uint32 [nnz]
+
+    def get_values_for_pairs(self, a_ids: np.ndarray, b_ids: np.ndarray) -> np.ndarray:
+        """All anchors for the cross product of term id lists (vectorised)."""
+        if len(a_ids) == 0 or len(b_ids) == 0 or len(self.keys) == 0:
+            return np.empty(0, dtype=np.uint32)
+        a = np.asarray(a_ids, dtype=np.uint64)
+        b = np.asarray(b_ids, dtype=np.uint64)
+        pair_keys = ((a[:, None] << np.uint64(32)) | b[None, :]).ravel()
+        pos = np.minimum(np.searchsorted(self.keys, pair_keys), len(self.keys) - 1)
+        hit_pos = pos[self.keys[pos] == pair_keys]
+        starts = self.offsets[hit_pos].astype(np.int64)
+        counts = self.offsets[hit_pos + 1].astype(np.int64) - starts
+        return self.values[_run_positions(starts, counts)]
 
 
 class TermDictionary:

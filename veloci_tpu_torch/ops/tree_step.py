@@ -17,6 +17,12 @@ The deep form (an OR of ANDs of ORs) adds the subtree level, gated on its
 own group count, the maximum over subtrees that share their leftmost term,
 and a last union over those terms.
 
+Phrase boosts ride the same sort (``tree_step.py:446-465``): each phrase
+anchor is a pseudo-row with score -inf whose slot key sorts before every
+real one and forms its own group (deep: its own term) that never scores;
+each candidate's score is then multiplied by 5 ** (its phrase rows),
+before the filter and the boosts (``:208-212, 310-312``).
+
 Here one sort serves a whole batch: every row gets an int64 key
 (query, anchor desc, slot key), ``torch.unique`` sorts and dedups the keys
 and a scatter max gives each (query, anchor, slot) its best score. Each
@@ -33,33 +39,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .generic_step import _HIT_EPS
 from .search_step import gather_runs
-from .topk import score_desc_key, segmented_topk
+from .topk import score_desc_key
 
 __all__ = [
-    "batched_tree_topk_single_slot",
-    "batched_tree_topk",
+    "PHRASE_NG",
+    "batched_tree_candidates",
+    "tree_candidates_single",
     "tree_candidates",
     "tree_candidates_deep",
+    "_apply_boost_gathered",
 ]
 
 _EPS = float(np.float32(1e-5))  # the reference's hit gate, as an f32 value
 _I31 = (1 << 31) - 1
+PHRASE_NG = 1 << 30  # a phrase pseudo-row's subtree gate: never passes
+_SKIP_TOL = 1e-5  # skip_when_score: |score - value| below this exempts a hit
 
 
-def batched_tree_topk_single_slot(
-    offsets, packed, term_ids, term_scores, term_query, counts, num_queries: int,
-    num_docs: int, k,
-):
-    """Many single-slot queries (one leaf's terms, or one term string over
-    several fields), each over its matched terms: ``tree_candidates_single``.
-
-    ``term_ids``/``term_scores`` [T] on the device, ``term_query`` [T] the
-    query of each term (on the device), ``counts`` [T] run lengths on the
-    host, ``k [num_queries]``. Returns flat ``(query, anchors, scores)`` of
-    each query's top-k candidates and ``num_hits [num_queries]``, the number
-    of anchors whose maximum passes the gate."""
-    _t, a, s, seg = gather_runs(offsets, packed, term_ids, term_scores, counts, term_query)
+def tree_candidates_single(seg, a, s, num_docs: int):
+    """Single-slot queries (one leaf's terms, or one term string over
+    several fields): each anchor's maximum, kept where it reaches the gate
+    (``tree_candidates_single``). Returns ``(query, anchor, score)`` ordered
+    by (query, anchor desc)."""
     # rows sorted by (query, anchor desc, score desc): each anchor's first
     # row in its query holds its maximum
     order = torch.argsort(((_I31 - a) << 32) | score_desc_key(s), stable=True)
@@ -68,19 +71,18 @@ def batched_tree_topk_single_slot(
     first = torch.ones_like(seg, dtype=torch.bool)
     first[1:] = (seg[1:] != seg[:-1]) | (a[1:] != a[:-1])
     cand = first & (a < num_docs) & (s >= _EPS)
-    seg, a, s = seg[cand], a[cand], s[cand]
-    num_hits = torch.bincount(seg, minlength=num_queries)
-    return segmented_topk(seg, s, a, num_queries, k), num_hits
+    return seg[cand], a[cand], s[cand]
 
 
 def _anchor_bits(num_docs: int) -> int:
     return max(1, (num_docs - 1).bit_length())
 
 
-def _slot_entries(seg, a, s, slot, num_docs: int, slot_bits: int, *per_row):
+def _slot_entries(seg, a, s, slot, num_docs: int, slot_bits: int, *per_row, phrase=None):
     """Rows -> one entry per (query, anchor, slot), ascending by key
-    (query, anchor desc, slot key), with its best score and, for each
-    ``per_row`` tensor (constant within an entry), its value."""
+    (query, anchor desc, slot key), with its best score, for each
+    ``per_row`` tensor (constant within an entry) its value, and, given the
+    ``phrase`` row flags, each entry's count of phrase rows (else None)."""
     ab = _anchor_bits(num_docs)
     if seg.numel() and int(seg.max()).bit_length() + ab + slot_bits > 63:
         raise ValueError("query, anchor and slot keys do not fit an int64 key")
@@ -92,7 +94,22 @@ def _slot_entries(seg, a, s, slot, num_docs: int, slot_bits: int, *per_row):
     best.scatter_reduce_(0, inv, s, "amax")
     extra = [torch.zeros(ekey.shape, dtype=t.dtype, device=t.device).scatter_(0, inv, t[keep])
              for t in per_row]
-    return ekey, best, extra
+    pcount = None
+    if phrase is not None:
+        pcount = torch.zeros(ekey.shape, dtype=torch.int64, device=s.device)
+        pcount.index_add_(0, inv, phrase[keep].to(torch.int64))
+    return ekey, best, extra, pcount
+
+
+def _phrase_factor(final, pcount, run_of):
+    """``final`` x 5 ** (phrase rows per anchor): ``pcount`` per entry of a
+    level below the anchors, ``run_of`` each entry's anchor. 5 ** g is exact
+    in f32 up to g = 10, and correctly rounded from f64 above."""
+    if pcount is None:
+        return final
+    g = torch.zeros(final.shape, dtype=torch.int64, device=final.device)
+    g.index_add_(0, run_of, pcount)
+    return final * torch.pow(5.0, g.to(torch.float64)).to(torch.float32)
 
 
 def _runs(keys):
@@ -138,15 +155,19 @@ def _candidates(akey, final, num_docs):
     return akey >> ab, (num_docs - 1) - (akey & ((1 << ab) - 1)), final
 
 
-def tree_candidates(seg, a, s, slot, num_groups, num_docs: int, slot_bits: int, group_shift: int):
+def tree_candidates(
+    seg, a, s, slot, num_groups, num_docs: int, slot_bits: int, group_shift: int, phrase=None,
+):
     """Two-level tree (flat OR, flat AND, AND of ORs) over gathered rows.
 
     ``seg [M]`` query of each row, ``a [M]`` int64 anchors, ``s [M]`` f32
     scores, ``slot [M]`` int64 slot keys below ``2**slot_bits`` whose bits
     from ``group_shift`` up name the group; ``num_groups [Q]`` the groups
-    each query's AND needs. Returns ``(query, anchor, score)`` of every
-    anchor with a score > 0, ordered by (query, anchor desc)."""
-    ekey, slot_max, _ = _slot_entries(seg, a, s, slot, num_docs, slot_bits)
+    each query's AND needs; ``phrase [M]`` (optional) bool, True on the
+    phrase pseudo-rows (see the module note). Returns ``(query, anchor,
+    score)`` of every anchor with a score > 0, ordered by (query, anchor
+    desc)."""
+    ekey, slot_max, _, pcount = _slot_entries(seg, a, s, slot, num_docs, slot_bits, phrase=phrase)
     gkey, g_of, g_len = _runs(ekey >> group_shift)
     sum2, cnt2 = _union(slot_max, g_of, g_len)
     group_score = torch.where(cnt2 > 0, sum2 * cnt2 * cnt2, 0.0)
@@ -155,18 +176,21 @@ def tree_candidates(seg, a, s, slot, num_groups, num_docs: int, slot_bits: int, 
     cnt3 = _count(group_score > 0, a_of, a_len.numel())
     need = num_groups[akey >> _anchor_bits(num_docs)].to(torch.float32)
     final = torch.where(cnt3 >= need, sum3, 0.0)
+    final = _phrase_factor(final, pcount, a_of[g_of])
     return _candidates(akey, final, num_docs)
 
 
-def tree_candidates_deep(seg, a, s, slot, ng, num_docs: int, slot_bits: int, shifts):
+def tree_candidates_deep(seg, a, s, slot, ng, num_docs: int, slot_bits: int, shifts, phrase=None):
     """OR of (leaf | AND of (leaf | OR of leaves)) over gathered rows.
 
     As :func:`tree_candidates`, with ``shifts = (term, subtree, group)``:
     the slot key's bits from each shift up name the row's leftmost-term
     slot, its subtree and its group; ``ng [M]`` is each row's subtree group
-    count (its AND gate)."""
+    count (its AND gate; ``PHRASE_NG`` on a phrase pseudo-row)."""
     term_shift, sub_shift, group_shift = shifts
-    ekey, slot_max, (ng_e,) = _slot_entries(seg, a, s, slot, num_docs, slot_bits, ng)
+    ekey, slot_max, (ng_e,), pcount = _slot_entries(
+        seg, a, s, slot, num_docs, slot_bits, ng, phrase=phrase
+    )
     # stage 2: union within each leaf-OR group
     gkey, g_of, g_len = _runs(ekey >> group_shift)
     sum2, cnt2 = _union(slot_max, g_of, g_len)
@@ -184,28 +208,74 @@ def tree_candidates_deep(seg, a, s, slot, ng, num_docs: int, slot_bits: int, shi
     # stage 5: union over the distinct terms of each anchor
     akey, a_of, a_len = _runs(tkey >> (slot_bits - term_shift))
     sum5, cnt5 = _union(term_max, a_of, a_len)
-    return _candidates(akey, sum5 * cnt5 * cnt5, num_docs)
+    final = _phrase_factor(sum5 * cnt5 * cnt5, pcount, a_of[t_of[u_of[g_of]]])
+    return _candidates(akey, final, num_docs)
 
 
-def batched_tree_topk(
-    offsets, packed, term_ids, term_scores, term_query, term_slots, counts,
-    num_queries: int, num_docs: int, k, *, slot_bits: int, shifts, num_groups=None,
-    term_ngs=None,
+def batched_tree_candidates(
+    offsets, packed, term_ids, term_scores, term_query, counts, num_docs: int, *,
+    term_slots=None, slot_bits: int = 0, shifts=(), num_groups=None, term_ngs=None,
+    phrase_rows=None,
 ):
-    """Many multi-slot tree queries, one gather and one sort for the batch.
+    """Many tree queries, one gather and one sort for the batch -> the flat
+    ``(query, anchor, score)`` candidates (score > 0), ordered by (query,
+    anchor desc).
 
-    Per term on the device: ``term_ids``, ``term_scores``, ``term_query``,
-    ``term_slots`` (slot keys, see :func:`tree_candidates`) and, for deep
-    trees, ``term_ngs``; ``counts`` [T] run lengths on the host. Two-level
-    trees pass ``num_groups [num_queries]`` and ``shifts = (group_shift,)``,
-    deep trees ``term_ngs`` and ``shifts = (term, subtree, group)``.
-    Returns flat ``(query, anchors, scores)`` of each query's top-k and
-    ``num_hits [num_queries]``, the anchors with a score > 0."""
+    Per term on the device: ``term_ids``, ``term_scores``, ``term_query``
+    and, for multi-slot trees, ``term_slots`` (slot keys, see
+    :func:`tree_candidates`) and for deep trees ``term_ngs``; ``counts``
+    [T] run lengths on the host. With no ``term_slots`` every query is
+    single-slot (:func:`tree_candidates_single`). Two-level trees pass
+    ``num_groups [num_queries]`` and ``shifts = (group_shift,)``, deep
+    trees ``term_ngs`` and ``shifts = (term, subtree, group)``.
+    ``phrase_rows = (query, anchor, slot key)`` [P] adds the phrase
+    pseudo-rows (multi-slot trees only)."""
+    if term_slots is None:
+        _t, a, s, seg = gather_runs(offsets, packed, term_ids, term_scores, counts, term_query)
+        return tree_candidates_single(seg, a, s, num_docs)
     per_term = (term_query, term_slots) + (() if term_ngs is None else (term_ngs,))
     _t, a, s, seg, slot, *ng = gather_runs(offsets, packed, term_ids, term_scores, counts, *per_term)
+    phrase = None
+    if phrase_rows is not None:
+        pq, pa, pslot = phrase_rows
+        phrase = torch.cat([torch.zeros_like(a, dtype=torch.bool), torch.ones_like(pa, dtype=torch.bool)])
+        seg, a, slot = torch.cat([seg, pq]), torch.cat([a, pa]), torch.cat([slot, pslot])
+        s = torch.cat([s, torch.full(pa.shape, -torch.inf, dtype=s.dtype, device=s.device)])
+        if ng:
+            ng = [torch.cat([ng[0], torch.full_like(pa, PHRASE_NG)])]
     if term_ngs is None:
-        seg, a, final = tree_candidates(seg, a, s, slot, num_groups, num_docs, slot_bits, shifts[0])
+        return tree_candidates(
+            seg, a, s, slot, num_groups, num_docs, slot_bits, shifts[0], phrase=phrase
+        )
+    return tree_candidates_deep(seg, a, s, slot, ng[0], num_docs, slot_bits, shifts, phrase=phrase)
+
+
+def _apply_boost_gathered(final, a_s, pre):
+    """A boost column read at the candidate anchors ``a_s`` (all below
+    ``num_docs``) only (``tree_step.py:331``): ``pre`` from
+    :func:`.generic_step._precompute_boost`. Only hits (score > 0) with a
+    present value are boosted, ``skip_when_score`` exempts listed scores,
+    and a boosted score floors at 1e-30. The folded modes read one array
+    per boost. Products and sums are separate f32 operations, as in the
+    reference (no fused multiply-add)."""
+    mode, fac, pres, skip, expr_add, folded = pre
+    if folded is not None:
+        m, add = folded
+        boosted = final * m[a_s] if m is not None else final
+        if add is not None:
+            boosted = boosted + add[a_s]
+        return torch.where(final > 0, torch.clamp(boosted, min=_HIT_EPS), final)
+    if mode == "mul":
+        boosted = final * fac[a_s]
+    elif mode == "add":
+        boosted = final + fac[a_s]
+    elif mode == "replace":
+        boosted = fac[a_s]
     else:
-        seg, a, final = tree_candidates_deep(seg, a, s, slot, ng[0], num_docs, slot_bits, shifts)
-    num_hits = torch.bincount(seg, minlength=num_queries)
-    return segmented_topk(seg, final, a, num_queries, k), num_hits
+        boosted = final
+    if expr_add is not None:
+        boosted = boosted + expr_add[a_s]
+    apply_mask = (final > 0) & pres[a_s]
+    for sv in skip:
+        apply_mask &= torch.abs(final - float(np.float32(sv))) >= _SKIP_TOL
+    return torch.where(apply_mask, torch.clamp(boosted, min=_HIT_EPS), final)

@@ -5,9 +5,11 @@
 accessors the query generator calls, ``:396-670``, and
 ``combined_host_csr``, ``:784-834``): the same index directory format, so
 either package reads what the other wrote. :class:`TorchIndex` is the
-counterpart of ``DeviceField`` and ``Persistence.device_combined``
-(``:111-393, 677-750, 835-878``): the sweep matrices and the combined
-posting CSR on one torch device.
+counterpart of ``DeviceField``, ``Persistence.device_combined`` and
+``device_boost`` (``:111-393, 677-750, 764-782, 835-878``): the sweep
+matrices, the combined posting CSR and, on first use, the boost columns on
+one torch device, beside the host relation stores that filters, phrase
+boosts and facets read.
 
 Lengths are runtime values: the device arrays carry no tile padding and no
 slice-window tail padding, because the port's kernels and reads bound
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from .create import TEXTINDEX, TO_ANCHOR_ID_SCORE, BuiltIndex
-from .error import FstNotFoundError
+from .error import FstNotFoundError, VelociError
 from .indices import AnchorScoreCsr, Csr, Direct, PhraseCsr, TermDictionary
 
 __all__ = [
@@ -282,15 +284,24 @@ def _device(device) -> torch.device:
     return dev
 
 
+def _strip_textindex(field: str) -> str:
+    return field[: -len(TEXTINDEX)] if field.endswith(TEXTINDEX) else field
+
+
 class TorchIndex:
     """An index on one torch device: per-field sweep matrices and the
     combined global-key posting CSR (``key_base[field] + term id``), with
-    the host term dictionaries the field search reads and the field list
-    the query generator expands terms over."""
+    the host term dictionaries the field search reads, the field list the
+    query generator expands terms over, and the host stores (column
+    metadata, key-value relations, boost columns, phrase pairs) that
+    filters, boosts, facets and phrase boosts read. ``cache`` holds what
+    the batched route derives from them once (device boost columns, filter
+    masks, facet relations)."""
 
     def __init__(
         self, *, num_docs, all_fields, dictionaries, fields, long_terms, host_offsets, offsets,
-        packed, key_base, device,
+        packed, key_base, device, columns=None, key_value_stores=None, boost_stores=None,
+        phrase_indices=None,
     ) -> None:
         self.device = device
         self.num_docs = int(num_docs)
@@ -302,6 +313,11 @@ class TorchIndex:
         self.offsets = offsets  # the same, on the device
         self.packed = packed  # [nnz, 2] int32 (anchor, f32 bits of score/100)
         self.key_base = key_base  # field -> (base, num_keys)
+        self.columns: Dict[str, dict] = columns or {}
+        self.key_value_stores: Dict[str, Csr | Direct] = key_value_stores or {}
+        self.boost_stores: Dict[str, Tuple[np.ndarray, np.ndarray]] = boost_stores or {}
+        self.phrase_indices: Dict[str, PhraseCsr] = phrase_indices or {}
+        self.cache: dict = {}
         self.path_counts: Counter = Counter()  # requests answered per route
         self.gathered_rows: Counter = Counter()  # posting rows read per route
 
@@ -318,7 +334,9 @@ class TorchIndex:
         [M] int32)`` (the reference's ``DeviceField`` host arrays, or
         ``char_matrix_compact()``); ``offsets``, ``anchors``, ``scores``
         and ``key_base`` the combined CSR of ``combined_host_csr()`` (scores
-        as the raw u16 x100 values)."""
+        as the raw u16 x100 values). The index carries no relation stores:
+        filters, boosts, facets and phrase boosts need one from
+        :meth:`from_persistence` or :func:`load_index`."""
         dictionaries = {
             f: TermDictionary.from_arrays({"term_bytes": np.asarray(b)})
             for f, b in term_bytes.items()
@@ -336,11 +354,14 @@ class TorchIndex:
         return cls._upload(
             pers.num_docs, pers.get_all_fields(), dict(pers.dictionaries),
             {f: d.char_matrix_compact() for f, d in pers.dictionaries.items()}, *comb, device,
+            columns=pers.columns, key_value_stores=pers.key_value_stores,
+            boost_stores=pers.boost_stores, phrase_indices=pers.phrase_indices,
         )
 
     @classmethod
     def _upload(
         cls, num_docs, all_fields, dictionaries, fields, offsets, anchors, scores, key_base, device,
+        **stores,
     ) -> "TorchIndex":
         dev = _device(device)
 
@@ -373,7 +394,7 @@ class TorchIndex:
         return cls(
             num_docs=num_docs, all_fields=all_fields, dictionaries=dictionaries, fields=sweeps,
             long_terms=long_terms, host_offsets=host_offsets, offsets=up(host_offsets, np.int64),
-            packed=up(packed, np.int32), key_base=dict(key_base), device=dev,
+            packed=up(packed, np.int32), key_base=dict(key_base), device=dev, **stores,
         )
 
     def get_all_fields(self) -> List[str]:
@@ -385,10 +406,45 @@ class TorchIndex:
         return path.endswith(_SCORE_SUFFIX) and path[: -len(_SCORE_SUFFIX)] in self.key_base
 
     def get_dictionary(self, field: str) -> TermDictionary:
-        dictionary = self.dictionaries.get(field)
+        dictionary = self.dictionaries.get(_strip_textindex(field))
         if dictionary is None:
             raise FstNotFoundError(field)
         return dictionary
+
+    def has_index(self, path: str) -> bool:
+        return (
+            path in self.key_value_stores
+            or path in self.phrase_indices
+            or path in self.boost_stores
+            or self.has_token_to_anchor(path)
+        )
+
+    def is_anchor_identity_column(self, field: str) -> bool:
+        col = self.columns.get(_strip_textindex(field))
+        return bool(col and col.get("is_anchor_identity_column"))
+
+    def get_boost(self, path: str) -> Tuple[np.ndarray, np.ndarray]:
+        store = self.boost_stores.get(path)
+        if store is None:
+            raise VelociError(f"boost index not found: {path!r}")
+        return store
+
+    def device_boost(self, path: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A boost column on the device, padded to ``[num_docs]``: (values
+        f32, present bool), uploaded once per path (``device_boost``,
+        ``persistence.py:764``)."""
+        key = ("boost", path)
+        cached = self.cache.get(key)
+        if cached is None:
+            vals, present = self.get_boost(path)
+            v = np.zeros(self.num_docs, dtype=np.float32)
+            p = np.zeros(self.num_docs, dtype=bool)
+            m = min(self.num_docs, len(vals))
+            v[:m], p[:m] = vals[:m], present[:m]
+            cached = self.cache[key] = (
+                torch.from_numpy(v).to(self.device), torch.from_numpy(p).to(self.device)
+            )
+        return cached
 
 
 def load_index(directory, device="cuda") -> TorchIndex:

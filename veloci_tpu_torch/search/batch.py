@@ -1,45 +1,62 @@
-"""Batched serving for trees of exact, fuzzy and ``starts_with`` leaves.
+"""Batched serving for trees of exact, fuzzy and ``starts_with`` leaves, with
+filters, boosts, facets and phrase boosts.
 
 Counterpart of ``search_batch`` (``veloci_tpu/search/batch.py:983-1177``) for
-the requests its plain routes take (``_plain_eligible``, ``:686-712``): a
-tree that is one search leaf, a flat OR, a flat AND or an AND of ORs
-(``_node_groups``, ``:108``), or an OR whose children are leaves and such
-ANDs (``_node_deep``, ``:198``), after the redundant nesting is flattened
-(``_normalize_node``, ``:177``). Leaves hold one term, exact or fuzzy at any
-distance, with or without ``starts_with``.
+the requests its batched routes take: a tree that is one search leaf, a
+flat OR, a flat AND or an AND of ORs (``_node_groups``, ``:108``), or an OR
+whose children are leaves and such ANDs (``_node_deep``, ``:198``), after
+the redundant nesting is flattened (``_normalize_node``, ``:177``). Leaves
+hold one term, exact or fuzzy at any distance, with or without
+``starts_with`` and a ``token_value`` boost. Plain trees take the routes
+of ``_plain_eligible`` (``:686-712``); a request with a filter, boost
+columns, facets or phrase boosts takes the same tree evaluators with the
+extras of ``_run_generic_group`` (``:1250-1452``, ``_generic_eligible``
+``:484-647``).
 
-The batch's fuzzy leaves get their matches from one sweep launch per field
-and kernel (``_prefetch_request_fuzzy``, ``:297-336``). Then each request
-takes one route, as in the reference (``:1030-1068``): a tree that resolves
-to ONE term reads that term's posting run ("singles"); a tree of one group
-whose matched terms share one slot takes the single-slot evaluator; other
-two-level trees the tree evaluator, and OR-of-AND trees its deep form.
-Results are windowed as ``_make_emit`` does (``:870-891``).
+The batch's fuzzy leaves, in the trees, the filters and the phrase pairs,
+get their matches from one sweep launch per field and kernel
+(``_prefetch_request_fuzzy``, ``:297-336``). Then each request takes one
+route, as in the reference (``:1030-1068``): a plain tree that resolves to
+ONE term reads that term's posting run ("singles"); a tree of one group
+whose matched terms share one slot takes the single-slot evaluator (not
+with phrase boosts); other two-level trees the tree evaluator, and OR-of-AND
+trees its deep form. The extras follow the reference's order
+(``ops/tree_step.py:466-495``): the tree with its phrase factor, the filter,
+the boosts in request order, ``num_hits`` = the scores > 0, the facet counts
+over that hit set, and the exact top-k. Results are windowed as
+``_make_emit`` does (``:870-891``).
 
 The reference sends a request past its caps (leaf term counts, slots,
-groups, sort capacity) to its per-request executor; here every admitted
-request is answered on its tree route, and a batch whose gathered posting
-rows exceed ``_ROW_BUDGET`` is split into several sorts. Every other request
-shape raises ``NotImplementedError`` naming the ROADMAP item that brings
-it; no request falls through to another engine.
+groups, sort capacity, phrase anchors) to its per-request executor; here
+every admitted request is answered on its tree route, and a batch whose
+gathered posting rows exceed ``_ROW_BUDGET`` is split into several sorts.
+Every other request shape raises ``NotImplementedError`` naming the
+ROADMAP item that brings it (:data:`_ADMISSION`); no request falls through
+to another engine.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..create import BOOST_VALID_TO_VALUE, PHRASE_PAIR_TO_ANCHOR, TEXTINDEX
 from ..error import InvalidRequestError
 from ..query.request import SearchRequest
+from ..ops.generic_step import _precompute_boost
 from ..ops.search_step import batched_single_term_topk
-from ..ops.tree_step import batched_tree_topk, batched_tree_topk_single_slot
+from ..ops.topk import segmented_topk
+from ..ops.tree_step import _apply_boost_gathered, batched_tree_candidates
+from .boost import ScoreExpression, expr_vec, resolve_ids_to_anchor
+from .facet import facet_counts, facet_relation, format_counts
 from .field_search import (
     clamped_distance,
     get_term_ids_in_field,
     leaf_field,
+    match_term_ids,
     prefetch_fuzzy_matches,
 )
 from .result import Hit, SearchResult
@@ -52,18 +69,7 @@ SEARCH, OR, AND = SearchRequest.SEARCH, SearchRequest.OR, SearchRequest.AND
 # (about 64 bytes a row across the key, score, order and run arrays)
 _ROW_BUDGET = 1 << 23
 
-# request-level features outside the slice -> the ROADMAP item bringing them
-_REQUEST_FEATURES = (
-    ("filter", "A6 (generic batched route)"),
-    ("boost", "A6 (generic batched route)"),
-    ("facets", "A6 (generic batched route)"),
-    ("phrase_boosts", "A6 (generic batched route)"),
-    ("boost_term", "A7 (per-request executor)"),
-    ("why_found", "A7 (per-request executor)"),
-    ("text_locality", "A7 (per-request executor)"),
-    ("explain", "A7 (per-request executor)"),
-    ("suggest", "A7 (per-request executor)"),
-)
+_A7 = "A7 (per-request executor)"
 
 
 def _unsupported(what: str, item: str):
@@ -72,24 +78,74 @@ def _unsupported(what: str, item: str):
     )
 
 
+def _text_path(path: str) -> str:
+    return path if path.endswith(TEXTINDEX) else path + TEXTINDEX
+
+
+def _boost_path(boost) -> str:
+    bp = boost.path
+    return bp if bp.endswith(BOOST_VALID_TO_VALUE) else bp + BOOST_VALID_TO_VALUE
+
+
+def _has_extras(request) -> bool:
+    return bool(request.filter or request.boost or request.facets or request.phrase_boosts)
+
+
+def _extra_parts(request):
+    """The leaves of the request's filter and phrase boosts."""
+    if request.filter is not None:
+        yield from request.filter.walk_parts()
+    for pb in request.phrase_boosts or ():
+        yield pb.search1
+        yield pb.search2
+
+
+# Admission: (route, predicate(request, index), reason). The first row whose
+# predicate holds decides: a route of None raises NotImplementedError with
+# the reason, naming the ROADMAP item that brings the shape; "generic" and
+# "plain" admit the request (its tree is then checked by _check_tree). The
+# raising rows are where the reference's _generic_eligible sends a request
+# to its per-request executor; its caps that exist only for the TPU compile
+# and memory model (_MAX_FILTER_ANCHORS on phrase anchors, the t/q/p pad
+# buckets, _MAX_LEAF_TERMS_FUZZY with its "fz" route) have no row.
+_ADMISSION = (
+    (None, lambda r, ix: r.boost_term, ("request 'boost_term'", _A7)),
+    (None, lambda r, ix: r.why_found, ("request 'why_found'", _A7)),
+    (None, lambda r, ix: r.text_locality, ("request 'text_locality'", _A7)),
+    (None, lambda r, ix: r.explain, ("request 'explain'", _A7)),
+    (None, lambda r, ix: r.suggest, ("request 'suggest'", _A7)),
+    (None, lambda r, ix: any("[]" in b.path for b in r.boost or ()),
+     ("a boost over a 1:n path ('[]')", _A7)),
+    (None, lambda r, ix: any(not ix.has_index(_boost_path(b)) for b in r.boost or ()),
+     ("a boost path without a boost column", _A7)),
+    (None, lambda r, ix: any(facet_relation(ix, f.field) is None for f in r.facets or ()),
+     ("a facet field without a fast relation, or past the facet gates", _A7)),
+    (None, lambda r, ix: any(pb.search1.path != pb.search2.path for pb in r.phrase_boosts or ()),
+     ("a phrase boost over two fields", _A7)),
+    (None, lambda r, ix: any(p.is_regex for p in _extra_parts(r)),
+     ("a regex leaf in a filter or a phrase boost", "A8 (regex prefilter)")),
+    ("generic", lambda r, ix: _has_extras(r),
+     "filter, boost columns, facets or phrase boosts: the tree routes with their extras"),
+    ("plain", lambda r, ix: True, "a plain tree: the singles and tree routes"),
+)
+
+
 def _check_tree(node) -> None:
     """Raise for leaves and nodes the tree routes do not take (``_leaf_ok``,
     ``:52``)."""
     if node.kind != SEARCH:
         if node.options:
-            raise _unsupported("tree node options", "A7 (per-request executor)")
+            raise _unsupported("tree node options", _A7)
         for q in node.queries:
             _check_tree(q)
         return
     part = node.part
     if len(part.terms) != 1:
-        raise _unsupported("a leaf with several terms", "A7 (per-request executor)")
+        raise _unsupported("a leaf with several terms", _A7)
     if part.is_regex:
         raise _unsupported("a regex leaf", "A8 (regex prefilter)")
     if part.snippet or part.options:
-        raise _unsupported("leaf snippets and options", "A7 (per-request executor)")
-    if part.token_value is not None:
-        raise _unsupported("a token-value boost", "A6 (generic batched route)")
+        raise _unsupported("leaf snippets and options", _A7)
 
 
 def _normalize_node(node):
@@ -188,10 +244,12 @@ class _Query(NamedTuple):
     levels: np.ndarray  # [t, levels] int64 slot numbering of each term
     ng: np.ndarray  # [t] int64 subtree group count (deep trees)
     num_groups: int
+    fkey: Optional[tuple] = None  # the filter's tree key
+    panchors: np.ndarray = np.empty(0, np.int64)  # phrase anchors, with multiplicity
 
 
 def _resolve(index, qi, req, plan, fuzzy, memo) -> _Query:
-    kind, shape = plan
+    kind, shape, _generic = plan
     leaves = _leaf_slots(shape) if kind == "deep" else _group_slots(shape)
     g, sc, lv, ng = [np.empty(0, np.int64)], [np.empty(0, np.float32)], [], []
     for part, levels, n_groups in leaves:
@@ -201,7 +259,7 @@ def _resolve(index, qi, req, plan, fuzzy, memo) -> _Query:
             ids, scores = get_term_ids_in_field(index, part, fuzzy)
             field = leaf_field(part)
             if field not in index.key_base:
-                raise _unsupported(f"field {field!r} without postings", "A7 (per-request executor)")
+                raise _unsupported(f"field {field!r} without postings", _A7)
             base, nk = index.key_base[field]
             keep = ids < nk
             hit = memo[key] = (ids[keep] + base, scores[keep])
@@ -220,19 +278,29 @@ def _resolve(index, qi, req, plan, fuzzy, memo) -> _Query:
     )
 
 
-def _slot_keys(queries):
+def _slot_keys(queries, phrase: bool):
     """Pack each term's slot numbering into one int64 key for the batch:
     one bit field per level, outermost highest, counting down, so ascending
-    keys are the reference's slot-descending order. Returns (keys [T],
-    slot_bits, shifts of the levels above the innermost)."""
+    keys are the reference's slot-descending order. With ``phrase``, the
+    phrase pseudo-rows get the key of one outermost value past every real
+    one: it sorts first, as the reference's ``_PHRASE_SLOT`` does, in a
+    group (deep: a term) of its own. Returns (keys [T], slot_bits, shifts
+    of the levels above the innermost, the phrase rows' key or None)."""
     levels = np.concatenate([q.levels for q in queries])
+    if phrase:
+        top = np.zeros((1, levels.shape[1]), np.int64)
+        top[0, 0] = int(levels[:, 0].max(initial=-1)) + 1
+        levels = np.concatenate([levels, top])
     bits = [int(m).bit_length() for m in levels.max(axis=0)] if len(levels) else [0] * levels.shape[1]
     shifts = [sum(bits[i + 1 :]) for i in range(len(bits))]
     packed = np.zeros(len(levels), np.int64)
     for col, shift in enumerate(shifts):
         packed |= levels[:, col] << shift
     slot_bits = sum(bits)
-    return ((1 << slot_bits) - 1) - packed, slot_bits, tuple(shifts[:-1])
+    keys = ((1 << slot_bits) - 1) - packed
+    if phrase:
+        return keys[:-1], slot_bits, tuple(shifts[:-1]), int(keys[-1])
+    return keys, slot_bits, tuple(shifts[:-1]), None
 
 
 def _chunks(rows: np.ndarray, max_queries: int):
@@ -249,7 +317,7 @@ def _chunks(rows: np.ndarray, max_queries: int):
     return out
 
 
-def _emit(request, ids, scores, num_hits, start) -> SearchResult:
+def _emit(request, ids, scores, num_hits, start, facets=None) -> SearchResult:
     """Drop non-positive scores, then window by the request's skip/top."""
     mask = scores > 0
     ids, scores = ids[mask], scores[mask]
@@ -258,6 +326,7 @@ def _emit(request, ids, scores, num_hits, start) -> SearchResult:
     res = SearchResult()
     res.num_hits = int(num_hits)
     res.data = [Hit(int(i), float(s)) for i, s in list(zip(ids, scores))[skip : skip + top]]
+    res.facets = facets
     res.execution_time_ns = time.time_ns() - start
     return res
 
@@ -269,8 +338,154 @@ def _split(seg, ids, scores, n):
     return [(ids[a:b], scores[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
 
 
-def _answer(index, route, queries, requests, results, start) -> None:
-    """Answer one route's queries, a chunk of queries per gather and sort."""
+class _Extras(NamedTuple):
+    """A generic group's extras: its boost columns (request order), its
+    facet fields and, when a query carries one, its distinct filters."""
+
+    boosts: tuple  # _precompute_boost tuples
+    facets: tuple  # (field, FacetRelation)
+    fmasks: Optional[torch.Tensor]  # [NF, num_docs] bool, or None
+    fkey_row: Dict[tuple, int]  # filter tree key -> row of fmasks
+
+
+def _filter_tree_key(node) -> tuple:
+    if node.kind == SEARCH:
+        return ("s", node.part.key())
+    return (node.kind, tuple(_filter_tree_key(q) for q in node.queries))
+
+
+def _bounded(index, name: str, limit: int) -> dict:
+    """A memo in the index's cache, emptied when it outgrows ``limit``."""
+    memo = index.cache.setdefault(name, {})
+    if len(memo) > limit:
+        memo.clear()
+    return memo
+
+
+def _filter_anchor_list(index, node, fuzzy) -> np.ndarray:
+    """The filter's anchors, resolved on the host and memoised per index
+    (``_filter_anchor_list``, ``:382``): a leaf's matched ids (all of them,
+    before any leaf ``top``) resolved to anchors; an OR their union, an AND
+    their intersection."""
+    memo = _bounded(index, "filter_anchors", 4096)
+    tkey = _filter_tree_key(node)
+    hit = memo.get(tkey)
+    if hit is not None:
+        return hit
+    if node.kind == SEARCH:
+        ids = match_term_ids(index, node.part, fuzzy)[0]
+        anchors = resolve_ids_to_anchor(index, _text_path(node.part.path), ids)
+        out = np.unique(anchors[(anchors >= 0) & (anchors < index.num_docs)])
+    else:
+        out = np.empty(0, dtype=np.int64)
+        subs = [_filter_anchor_list(index, q, fuzzy) for q in node.queries]
+        if subs:
+            out = subs[0]
+            for sub in subs[1:]:
+                out = np.union1d(out, sub) if node.kind == OR else np.intersect1d(out, sub)
+    memo[tkey] = out
+    return out
+
+
+def _filter_mask_device(index, node, fuzzy) -> torch.Tensor:
+    """The filter as a ``[num_docs]`` bool mask on the device, built once per
+    distinct filter (``_filter_mask_device``, ``:460``)."""
+    memo = _bounded(index, "filter_masks", 512)
+    tkey = _filter_tree_key(node)
+    mask = memo.get(tkey)
+    if mask is None:
+        anchors = _filter_anchor_list(index, node, fuzzy)
+        mask = torch.zeros(index.num_docs, dtype=torch.bool, device=index.device)
+        mask[torch.from_numpy(anchors).to(index.device)] = True
+        memo[tkey] = mask
+    return mask
+
+
+def _filter_mask_stack(index, nodes: Dict[tuple, object], fuzzy):
+    """The distinct filters of a group as one cached ``[NF, num_docs]`` bool
+    tensor, rows in a canonical order so that the same set reuses one
+    stack, and each filter key's row (``_filter_mask_stack``, ``:427``)."""
+    skey = tuple(sorted(nodes, key=repr))
+    memo = _bounded(index, "filter_stacks", 128)
+    stack = memo.get(skey)
+    if stack is None:
+        stack = memo[skey] = torch.stack([_filter_mask_device(index, nodes[k], fuzzy) for k in skey])
+    return stack, {k: i for i, k in enumerate(skey)}
+
+
+def _phrase_anchor_list(index, phrase_boosts, fuzzy) -> np.ndarray:
+    """Phrase-pair anchors with group multiplicity (``_phrase_anchor_list``,
+    ``:650``): per distinct (term1, term2), the anchors of every matched id
+    pair, once each; an anchor in g such groups appears g times (factor
+    5 ** g)."""
+    groups: dict = {}
+    for pb in phrase_boosts:
+        store = index.phrase_indices.get(_text_path(pb.search1.path) + PHRASE_PAIR_TO_ANCHOR)
+        a_ids = match_term_ids(index, pb.search1, fuzzy)[0]
+        b_ids = match_term_ids(index, pb.search2, fuzzy)[0]
+        if store is None:
+            continue
+        key = (pb.search1.terms[0], pb.search2.terms[0])
+        groups.setdefault(key, []).append(store.get_values_for_pairs(a_ids, b_ids))
+    parts = [np.unique(np.concatenate(v).astype(np.int64)) for v in groups.values()]
+    out = np.concatenate(parts) if parts else np.empty(0, dtype=np.int64)
+    return out[out < index.num_docs]
+
+
+def _boost_key(boost) -> tuple:
+    return (
+        _boost_path(boost), boost.boost_fun or "", float(boost.param or 0.0),
+        tuple(float(v) for v in boost.skip_when_score or ()), boost.expression or "",
+    )
+
+
+def _boost_factors(index, bkey) -> tuple:
+    """One boost column's factor arrays on the device, once per index and
+    boost spec (``_boost_device_arrays``, ``:1454``). They are computed on
+    the host and uploaded: a logarithm rounds differently on the card and
+    on the CPU, and computed once the factors are the same on both, so the
+    card's answers equal the CPU path's bit for bit."""
+    memo = index.cache.setdefault("boost_factors", {})
+    pre = memo.get(bkey)
+    if pre is None:
+        path, fun, param, skip, expr = bkey
+        bv, pres = (t.cpu() for t in index.device_boost(path))
+        expr_add = expr_vec(ScoreExpression(expr), bv) if expr else None
+        pre = _precompute_boost(bv, pres, (fun, param, skip, expr_add))
+        pre = memo[bkey] = _to_device(pre, index.device)
+    return pre
+
+
+def _to_device(obj, device):
+    """Every tensor in a nest of tuples, on ``device``."""
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if isinstance(obj, tuple):
+        return tuple(_to_device(o, device) for o in obj)
+    return obj
+
+
+def _group_extras(index, boost_keys, facet_fields, queries, requests, fuzzy) -> _Extras:
+    nodes = {q.fkey: requests[q.qi].filter for q in queries if q.fkey is not None}
+    fmasks, fkey_row = _filter_mask_stack(index, nodes, fuzzy) if nodes else (None, {})
+    return _Extras(
+        tuple(_boost_factors(index, b) for b in boost_keys),
+        tuple((f, facet_relation(index, f)) for f in facet_fields),
+        fmasks, fkey_row,
+    )
+
+
+def _facets_of(index, request, fields, rows) -> Dict[str, list]:
+    """The request's facet lists from its count rows (``_facets_of``, ``:1467``)."""
+    return {
+        f.field: format_counts(index, f.field, rows[fields.index(f.field)], f.top)
+        for f in request.facets
+    }
+
+
+def _answer(index, route, queries, requests, results, start, extras=None) -> None:
+    """Answer one route's queries, a chunk of queries per gather and sort;
+    ``extras`` (a generic group's) are applied to each chunk's candidates."""
     if not queries:
         return
     dev, ho = index.device, index.host_offsets
@@ -280,9 +495,11 @@ def _answer(index, route, queries, requests, results, start) -> None:
     rows = np.concatenate([[0], np.cumsum(counts)])[t_start]
     rows = rows[1:] - rows[:-1]  # gathered rows per query
     index.gathered_rows[route] += int(rows.sum())
+    rows = rows + np.array([len(q.panchors) for q in queries])
+    phrase = any(len(q.panchors) for q in queries)
     max_queries = len(queries)
     if route in ("tree", "deep"):
-        keys, slot_bits, shifts = _slot_keys(queries)
+        keys, slot_bits, shifts, phrase_key = _slot_keys(queries, phrase)
         ab = max(1, (index.num_docs - 1).bit_length())
         max_queries = 1 << max(0, 63 - ab - slot_bits)
 
@@ -291,86 +508,148 @@ def _answer(index, route, queries, requests, results, start) -> None:
 
     for lo, hi in _chunks(rows, max_queries):
         chunk = queries[lo:hi]
+        n = len(chunk)
         sl = slice(t_start[lo], t_start[hi])
         tids, cnt = up(g[sl]), counts[sl]
         tsc = up(np.concatenate([q.scores for q in chunk]), np.float32)
         k = torch.tensor([q.k for q in chunk], dtype=torch.int64, device=dev)
-        tq = up(np.repeat(np.arange(len(chunk)), t_start[lo + 1 : hi + 1] - t_start[lo:hi]))
+        tq = up(np.repeat(np.arange(n), t_start[lo + 1 : hi + 1] - t_start[lo:hi]))
+        facet_rows = ()
         if route == "single":
             (seg, ids, scores), num_hits = batched_single_term_topk(
                 index.offsets, index.packed, tids, tsc, cnt, k
             )
-        elif route == "single_slot":
-            (seg, ids, scores), num_hits = batched_tree_topk_single_slot(
-                index.offsets, index.packed, tids, tsc, tq, cnt, len(chunk), index.num_docs, k
-            )
         else:
-            deep = route == "deep"
-            (seg, ids, scores), num_hits = batched_tree_topk(
-                index.offsets, index.packed, tids, tsc, tq, up(keys[sl]), cnt, len(chunk),
-                index.num_docs, k, slot_bits=slot_bits, shifts=shifts,
-                num_groups=None if deep else up([q.num_groups for q in chunk], np.int64),
-                term_ngs=up(np.concatenate([q.ng for q in chunk])) if deep else None,
-            )
+            phrase_rows = None
+            if extras is not None:
+                # the chunk's small per-query arrays (filter rows, phrase
+                # rows) staged in one host buffer, one copy
+                frow, pq, pa = _stage(
+                    dev, [-1 if q.fkey is None else extras.fkey_row[q.fkey] for q in chunk],
+                    [q.panchors for q in chunk],
+                )
+                if phrase:
+                    phrase_rows = (pq, pa, torch.full_like(pa, phrase_key))
+            if route == "single_slot":
+                seg, a, final = batched_tree_candidates(
+                    index.offsets, index.packed, tids, tsc, tq, cnt, index.num_docs
+                )
+            else:
+                deep = route == "deep"
+                seg, a, final = batched_tree_candidates(
+                    index.offsets, index.packed, tids, tsc, tq, cnt, index.num_docs,
+                    term_slots=up(keys[sl]), slot_bits=slot_bits, shifts=shifts,
+                    num_groups=None if deep else up([q.num_groups for q in chunk], np.int64),
+                    term_ngs=up(np.concatenate([q.ng for q in chunk])) if deep else None,
+                    phrase_rows=phrase_rows,
+                )
+            if extras is not None:
+                if extras.fmasks is not None:
+                    fr = frow[seg]
+                    keep = (fr < 0) | extras.fmasks[fr.clamp(min=0), a]
+                    final = torch.where(keep, final, 0.0)
+                for pre in extras.boosts:
+                    final = _apply_boost_gathered(final, a, pre)
+                hit = final > 0
+                seg, a, final = seg[hit], a[hit], final[hit]
+                facet_rows = [
+                    facet_counts(rel, seg, a, n).cpu().numpy() for _f, rel in extras.facets
+                ]
+            num_hits = torch.bincount(seg, minlength=n)
+            seg, ids, scores = segmented_topk(seg, final, a, n, k)
         nh = num_hits.cpu().numpy() if torch.is_tensor(num_hits) else num_hits
-        for q, (i, s), n in zip(chunk, _split(seg, ids, scores, len(chunk)), nh):
-            results[q.qi] = _emit(requests[q.qi], i, s, n, start)
+        fields = [f for f, _rel in extras.facets] if facet_rows else []
+        for row, (q, (i, s), h) in enumerate(zip(chunk, _split(seg, ids, scores, n), nh)):
+            req = requests[q.qi]
+            facets = _facets_of(index, req, fields, [c[row] for c in facet_rows]) if fields else None
+            results[q.qi] = _emit(req, i, s, h, start, facets)
 
 
-def _plan(request):
-    """Admit a request: ("flat", groups) or ("deep", subtrees), or raise for
-    shapes outside the slice."""
+def _stage(dev, frow, panchors):
+    """Per query its filter row, and its phrase anchors: one int64 host
+    buffer, one copy -> (frow [Q], phrase query [P], phrase anchor [P])."""
+    pa = np.concatenate(panchors)
+    pq = np.repeat(np.arange(len(panchors)), [len(p) for p in panchors])
+    buf = np.concatenate([np.asarray(frow, np.int64), pq, pa]).astype(np.int64)
+    flat = torch.from_numpy(buf).to(dev)
+    q, p = len(frow), len(pa)
+    return flat[:q], flat[q : q + p], flat[q + p :]
+
+
+def _plan(request, index):
+    """Admit a request (:data:`_ADMISSION`): ("flat", groups, generic) or
+    ("deep", subtrees, generic), or raise for shapes outside the slice."""
     if request.search_req is None:
         raise InvalidRequestError("search_req is required in search")
-    for attr, item in _REQUEST_FEATURES:
-        if getattr(request, attr):
-            raise _unsupported(f"request {attr!r}", item)
+    for route, predicate, reason in _ADMISSION:
+        if predicate(request, index):
+            if route is None:
+                raise _unsupported(*reason)
+            break
     _check_tree(request.search_req)
     node = _normalize_node(request.search_req)
+    generic = route == "generic"
     groups = _node_groups(node)
     if groups is not None:
-        return "flat", groups
+        return "flat", groups, generic
     supers = _node_deep(node)
     if supers is not None:
-        return "deep", supers
-    raise _unsupported("a tree beyond OR(AND(OR))", "A7 (per-request executor)")
+        return "deep", supers, generic
+    raise _unsupported("a tree beyond OR(AND(OR))", _A7)
+
+
+def _fuzzy_specs(requests):
+    """Every fuzzy leaf of the batch's trees, filters and phrase pairs, as
+    a prefetch spec (``_prefetch_request_fuzzy``, ``:314-336``)."""
+    for req in requests:
+        for p in (*req.search_req.walk_parts(), *_extra_parts(req)):
+            if clamped_distance(p) > 0:
+                yield leaf_field(p), p.terms[0].lower(), clamped_distance(p), bool(p.starts_with)
 
 
 def search_batch(requests: List, index) -> List[SearchResult]:
     """Answer a batch of tree requests on ``index``'s device. Results equal
     the reference's ``search_batch``: ids, order (score desc, id desc),
-    ``num_hits`` and f32 scores (see :mod:`..ops.tree_step` for the sum
-    order of unions of three or more slots)."""
+    ``num_hits``, facet lists and f32 scores (see :mod:`..ops.tree_step` for
+    the sum order of unions of three or more slots)."""
     start = time.time_ns()
-    plans = [_plan(req) for req in requests]
-    fuzzy = prefetch_fuzzy_matches(
-        index,
-        {
-            (leaf_field(p), p.terms[0].lower(), clamped_distance(p), bool(p.starts_with))
-            for req in requests
-            for p in req.search_req.walk_parts()
-            if clamped_distance(p) > 0
-        },
-    )
+    plans = [_plan(req, index) for req in requests]
+    fuzzy = prefetch_fuzzy_matches(index, set(_fuzzy_specs(requests)))
 
-    routes = {"single": [], "single_slot": [], "tree": [], "deep": []}
+    plain = {"single": [], "single_slot": [], "tree": [], "deep": []}
+    generic: Dict[tuple, list] = {}  # (route, boost keys, facet fields) -> queries
     memo: dict = {}  # leaf key -> (global term ids, scores), for this batch
     for qi, (req, plan) in enumerate(zip(requests, plans)):
+        kind, _shape, with_extras = plan
         q = _resolve(index, qi, req, plan, fuzzy, memo)
-        if plan[0] == "deep":
+        if kind == "deep":
             route = "deep"
-        elif q.num_groups == 1 and len(q.gtids) == 1:
+        elif not with_extras and q.num_groups == 1 and len(q.gtids) == 1:
             route = "single"
-        elif q.num_groups == 1 and len(np.unique(q.levels[:, 1])) <= 1:
+        elif q.num_groups == 1 and len(np.unique(q.levels[:, 1])) <= 1 and not req.phrase_boosts:
             route = "single_slot"
         else:
             route = "tree"
-        routes[route].append(q)
-    index.path_counts["batched_single_term"] += len(routes["single"])
-    index.path_counts["batched_tree"] += len(routes["single_slot"]) + len(routes["tree"])
-    index.path_counts["batched_tree_deep"] += len(routes["deep"])
+        if not with_extras:
+            plain[route].append(q)
+            continue
+        q = q._replace(
+            fkey=None if req.filter is None else _filter_tree_key(req.filter),
+            panchors=_phrase_anchor_list(index, req.phrase_boosts, fuzzy)
+            if req.phrase_boosts else q.panchors,
+        )
+        gkey = (route, tuple(_boost_key(b) for b in req.boost or ()),
+                tuple(dict.fromkeys(f.field for f in req.facets or ())))
+        generic.setdefault(gkey, []).append(q)
+    index.path_counts["batched_single_term"] += len(plain["single"])
+    index.path_counts["batched_tree"] += len(plain["single_slot"]) + len(plain["tree"])
+    index.path_counts["batched_tree_deep"] += len(plain["deep"])
+    index.path_counts["batched_generic"] += sum(len(v) for v in generic.values())
 
     results: List = [None] * len(requests)
-    for route, queries in routes.items():
+    for route, queries in plain.items():
         _answer(index, route, queries, requests, results, start)
+    for (route, boost_keys, facet_fields), queries in generic.items():
+        extras = _group_extras(index, boost_keys, facet_fields, queries, requests, fuzzy)
+        _answer(index, route, queries, requests, results, start, extras)
     return results

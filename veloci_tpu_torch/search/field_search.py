@@ -2,10 +2,10 @@
 
 Counterpart of ``veloci_tpu/search/field_search.py`` (``:49-117`` scoring and
 match post-processing, ``:120-401`` the batched fuzzy prefetch and the
-device match, ``:404-547`` ``get_term_ids_in_field``), for leaves of one
-term without regex or token-value boosts: exact terms, prefix ranges
-(``starts_with`` at distance 0), and fuzzy terms at any distance, with or
-without ``starts_with``.
+device match, ``:404-547`` ``get_term_ids_in_field``, ``:605-625`` the
+token-value boost), for leaves of one term without regex: exact terms,
+prefix ranges (``starts_with`` at distance 0), and fuzzy terms at any
+distance, with or without ``starts_with``.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..create import TEXTINDEX
+from ..create import BOOST_VALID_TO_VALUE, TEXTINDEX, TOKEN_VALUES
 from ..indices import MAX_TERM_CHARS
 from ..ops.levenshtein import (
     MAX_QUERY_CHARS,
@@ -25,6 +25,7 @@ from ..ops.levenshtein import (
     levenshtein_rows,
     select_matches,
 )
+from .boost import apply_boost_scalar
 from ..ops.levenshtein_sweep import (
     levenshtein_sweep_banded,
     levenshtein_sweep_banded_batch,
@@ -35,6 +36,7 @@ __all__ = [
     "get_default_score_for_distance",
     "prefetch_fuzzy_matches",
     "get_term_ids_in_field",
+    "match_term_ids",
     "leaf_field",
     "clamped_distance",
 ]
@@ -223,18 +225,19 @@ def _host_matches(dictionary, lower_term, distance, starts_with):
     return cand[keep].astype(np.int64), dist[keep].astype(np.int64), is_p[cand][keep]
 
 
-def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.ndarray]:
-    """The leaf's matched term ids (ascending) and their f32 scores.
+def match_term_ids(index, part, fuzzy_matches):
+    """The leaf's matched term ids, ascending, with the fuzzy match's
+    distances and prefix flags (None unless the leaf is fuzzy):
+    ``(matched, distances, is_prefix)``; ``matched`` is the reference's
+    ``hits_ids``, the ids a filter or a phrase boost resolves.
 
     ``fuzzy_matches`` is :func:`prefetch_fuzzy_matches`' result for the
     batch. Exact terms match case-folded unless ``ignore_case`` is false;
     a ``starts_with`` leaf at distance 0 takes the dictionary's prefix
     range; fuzzy matches are re-verified against the original case when
     ``ignore_case`` is false, on the FULL distance even for ``starts_with``
-    (:469-481). Leaf ``boost`` multiplies the scores and leaf ``top``
-    (+ ``skip``) keeps the best-scoring terms."""
-    field = leaf_field(part)
-    dictionary = index.get_dictionary(field)
+    (:469-481)."""
+    dictionary = index.get_dictionary(leaf_field(part))
     term = part.terms[0]
     lower_term = term.lower()
     ignore_case = part.ignore_case if part.ignore_case is not None else True
@@ -258,7 +261,7 @@ def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.nd
             )
         else:
             matched, aligned_dists, aligned_prefixes = fuzzy_matches[
-                (field, lower_term, distance, starts_with)
+                (leaf_field(part), lower_term, distance, starts_with)
             ]
         if not ignore_case:
             keep = np.array(
@@ -271,9 +274,20 @@ def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.nd
             matched = matched[keep]
             aligned_dists = aligned_dists[keep]
             aligned_prefixes = aligned_prefixes[keep]
+    return matched, aligned_dists, aligned_prefixes
 
+
+def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.ndarray]:
+    """The leaf's matched term ids (ascending) and their f32 scores, from
+    :func:`match_term_ids`. Leaf ``boost`` multiplies the scores, leaf
+    ``top`` (+ ``skip``) keeps the best-scoring terms, and a ``token_value``
+    boost then applies per term (search_field.rs:391-395)."""
+    matched, aligned_dists, aligned_prefixes = match_term_ids(index, part, fuzzy_matches)
     if not len(matched):
         return np.empty(0, np.int64), np.empty(0, np.float32)
+    dictionary = index.get_dictionary(leaf_field(part))
+    lower_term = part.terms[0].lower()
+    starts_with = bool(part.starts_with)
     if aligned_dists is not None:
         distances = aligned_dists
         prefix_matches = aligned_prefixes  # distance != 0: prefixes count
@@ -302,4 +316,24 @@ def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.nd
         top_n = part.top + (part.skip or 0)
         order = np.sort(np.argsort(-scores.astype(np.float64), kind="stable")[:top_n])
         matched, scores = matched[order], scores[order]
+    if part.token_value is not None:
+        scores = _apply_token_value_boost(index, part.token_value, matched, scores)
     return matched, scores
+
+
+def _apply_token_value_boost(index, tv, term_ids, scores) -> np.ndarray:
+    """Per matched term with a value in the leaf's token-value column, the
+    single-hit boost (field_search.py:605-625); no column, no change."""
+    boost_path = tv.path
+    if not boost_path.endswith(TOKEN_VALUES):
+        boost_path = boost_path + TEXTINDEX + TOKEN_VALUES
+    store = index.boost_stores.get(boost_path + BOOST_VALID_TO_VALUE)
+    if store is None:
+        return scores
+    vals, present = store
+    scores = scores.copy()
+    for i, tid in enumerate(term_ids):
+        t = int(tid)
+        if t < len(vals) and present[t]:
+            scores[i] = apply_boost_scalar(scores[i], float(vals[t]), tv)
+    return scores
