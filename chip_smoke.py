@@ -27,7 +27,8 @@ Phases (any failure is an exception and a non-zero exit):
 4. slice  -- a jmdict-shaped 200,000-document corpus (the generator of
              bench.py's build_corpus, seed 1234) is built with the port's
              builder and native indexer, saved, read back and uploaded.
-             Three main paths through ``search_batch``: single leaves
+             Three main paths through ``search_batch``, then one through
+             ``search`` (below, ``executor``): single leaves
              (batches of 256 exact, ~1 and ~2 requests, and single fuzzy
              requests), then query trees (batches of 256 query-string
              requests from the query generator -- two or three zipf words,
@@ -44,10 +45,32 @@ Phases (any failure is an exception and a non-zero exit):
              order, and requests are answered again on the CPU through the
              plain versions from the same index: ids, order, num_hits, f32
              score bits and facet lists must be identical.
-5. profile -- one batch of each mix under torch.profiler: the device's busy
-             share of the batch's wall time and its largest kernels; and the
-             single-query banded launch (B2) timed by its kernel's own
-             device events, beside its CUDA-event time.
+             The fourth main path, ``executor``, sends lone requests through
+             ``search``, 256 of each mix, timed one by one: ``deep_tree``
+             (trees of three and four levels over zipf words, one ``~1``
+             leaf each, a third with a ``starts_with`` ``~1`` leaf; most
+             beyond the batched route's shapes), ``multi_term`` (one title
+             leaf of 2-4 terms, half ``~1``) and ``generic_dense`` (the
+             ``generic`` mix's first batch with ``dense_only``: filters,
+             the Log10 boost, facets and phrase boosts on the dense
+             executor). It must launch the dense resolve (B7) and the
+             single-query banded sweep (B2), and every answer is checked
+             against the CPU plain path. The executor keeps no memo of
+             field searches, so requests are not answered from a cache
+             (filter masks and boost factors are cached per index, as on
+             the batched route).
+5. dense   -- kernel B7 (``csrc/dense_resolve.cu``) against its plain
+             version on the card, bit-equal, at the main path's largest
+             multi-term leaf (its recorded inputs) and on a synthetic
+             6,000,000-document plane with 2^23 gathered rows; ms of the
+             kernel, its plain version and one ``scatter_reduce_`` "amax"
+             over the gathered rows, beside the bound: 8 bytes a gathered
+             row read and 4 a document written, over 3.35 TB/s.
+6. profile -- one batch of each mix (32 lone requests of each executor
+             mix) under torch.profiler: the device's busy share of the
+             wall time and its largest kernels; and the single-query banded
+             launch (B2) timed by its kernel's own device events, beside its
+             CUDA-event time.
 """
 
 from __future__ import annotations
@@ -74,6 +97,11 @@ CPU_CHECKED_BATCHES = 4  # per single-leaf mix, re-answered on the CPU
 CPU_CHECKED_TREE_BATCHES = 1  # per tree mix (their CPU sweeps are full-width)
 SINGLES = 32  # one-request batches (single-query sweep entry point)
 SYNTH_TERMS = 1_000_000
+EXECUTOR_REQUESTS = 256  # lone requests per executor mix
+PROFILED_EXECUTOR_REQUESTS = 32
+DENSE_SYNTH_DOCS = 6_000_000  # B7's synthetic plane: past the reference's 2^21 sort capacity
+DENSE_SYNTH_ROWS = 1 << 23
+DENSE_SYNTH_TERMS = 64
 
 # Peak rates of one H100 SXM at its 700 W limit: HBM3 at 3.35 TB/s; INT32
 # instructions at 132 SMs x 64 INT32 lanes x 1.98 GHz (NVIDIA's data sheet
@@ -229,6 +257,51 @@ def request_mixes(vocab, probs, rng, fields):
         batches.append(batch)
     mixes["generic"] = batches
     return mixes
+
+
+# the executor mixes: each request alone through vt.search, with or
+# without dense_only
+DENSE_ONLY = {"deep_tree": False, "multi_term": False, "generic_dense": True}
+
+
+def executor_mixes(vocab, probs, generic_batch):
+    """EXECUTOR_REQUESTS lone requests per executor mix (their own seed).
+    ``deep_tree``: four shapes in turn over zipf words, each with one ``~1``
+    leaf and, on every third request, a ``starts_with`` ``~1`` leaf:
+    AND(OR(AND(a, b~1), c), d), OR(AND(OR(a, b~1), c), d) (the one the
+    batched deep route takes), AND(OR(AND(a, c), d), b~1) and
+    OR(AND(OR(AND(a, b~1), c), d), e). ``multi_term``: one title leaf of 2-4
+    zipf words, every other one at distance 1. ``generic_dense``: the
+    ``generic`` mix's first batch."""
+    erng = np.random.default_rng(7)
+
+    def leaf(w, **kw):
+        return {"search": dict({"terms": [w], "path": "title"}, **kw)}
+
+    def node(kind, *queries):
+        return {kind: {"queries": list(queries)}}
+
+    deep, multi = [], []
+    for i in range(EXECUTOR_REQUESTS):
+        a, b, c, d, e = (str(w) for w in erng.choice(vocab, size=5, p=probs))
+        fz = leaf(b, levenshtein_distance=1)
+        if i % 3 == 0:
+            c_leaf = leaf(c[: int(erng.integers(4, 7))], starts_with=True, levenshtein_distance=1)
+        else:
+            c_leaf = leaf(c)
+        tree = (
+            node("and", node("or", node("and", leaf(a), fz), c_leaf), leaf(d)),
+            node("or", node("and", node("or", leaf(a), fz), c_leaf), leaf(d)),
+            node("and", node("or", node("and", leaf(a), c_leaf), leaf(d)), fz),
+            node("or", node("and", node("or", node("and", leaf(a), fz), c_leaf), leaf(d)), leaf(e)),
+        )[i % 4]
+        deep.append({"search_req": tree, "top": 10})
+        words = [str(w) for w in erng.choice(vocab, size=int(erng.integers(2, 5)), p=probs)]
+        multi_leaf = {"terms": words, "path": "title"}
+        if i % 2:
+            multi_leaf["levenshtein_distance"] = 1
+        multi.append({"search_req": {"search": multi_leaf}, "top": 10})
+    return {"deep_tree": deep, "multi_term": multi, "generic_dense": list(generic_batch)}
 
 
 # ---------------------------------------------------------------- timing
@@ -421,6 +494,83 @@ def kernel_phase(sweep, encode_query, dictionaries, rng, report, baseline):
     return err, times
 
 
+def record_dense_leaves(executor, calls):
+    """Route the executor's leaf resolves through a recorder that keeps each
+    leaf's (field, term ids, scores) and calls the real resolve."""
+    real = executor.resolve_to_anchor_dense
+
+    def recording(index, field, term_ids, term_scores):
+        calls.append((field, term_ids, term_scores))
+        return real(index, field, term_ids, term_scores)
+
+    executor.resolve_to_anchor_dense = recording
+    return real
+
+
+def synthetic_dense_inputs():
+    """DENSE_SYNTH_TERMS runs of DENSE_SYNTH_ROWS rows in all over
+    DENSE_SYNTH_DOCS documents, each run's anchors ascending and spread over
+    the plane (one row an anchor in a run, runs overlapping at random), on
+    the card: dense_resolve's arguments."""
+    srng = np.random.default_rng(8)
+    run = DENSE_SYNTH_ROWS // DENSE_SYNTH_TERMS
+    stride = DENSE_SYNTH_DOCS // run
+    anchors = np.tile(np.arange(run, dtype=np.int64) * stride, DENSE_SYNTH_TERMS)
+    anchors += srng.integers(0, stride, DENSE_SYNTH_ROWS)
+    scores01 = srng.integers(0, 60000, DENSE_SYNTH_ROWS).astype(np.float32) / np.float32(100.0)
+    packed = np.stack([anchors.astype(np.int32), scores01.view(np.int32)], axis=1)
+    offsets = np.arange(DENSE_SYNTH_TERMS + 2, dtype=np.int64) * run
+    offsets[-1] = offsets[-2]
+    row_starts = np.arange(DENSE_SYNTH_TERMS + 1, dtype=np.int64) * run
+    term_scores = (srng.integers(100, 1000, DENSE_SYNTH_TERMS) / np.float32(100.0)).astype(np.float32)
+    return (torch.from_numpy(offsets).cuda(), torch.from_numpy(packed).cuda(),
+            torch.arange(DENSE_SYNTH_TERMS, dtype=torch.int32, device="cuda"),
+            torch.from_numpy(term_scores).cuda(), torch.from_numpy(row_starts).cuda(),
+            DENSE_SYNTH_ROWS, DENSE_SYNTH_DOCS)
+
+
+def dense_bound(args):
+    """(ms, "bytes"): 8 bytes a gathered row read, 4 a document written, 32
+    a term (id, score, run start, the run's two offsets), over 3.35 TB/s;
+    one multiply a row is far below the card's f32 rate."""
+    t, total_rows, num_docs = args[2].shape[0], args[5], args[6]
+    return (8 * total_rows + 4 * num_docs + 32 * t) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def dense_phase(postings, search_step, shapes, report):
+    """Kernel B7 against its plain version on each shape, bit-equal; ms of
+    the kernel, the plain version and one scatter_reduce_ "amax" over the
+    already gathered rows (the library call), beside the bound."""
+    rows = {}
+    for name, args in shapes.items():
+        got, want = postings.dense_resolve(*args), postings.dense_resolve_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"dense_resolve kernel != plain on {name}")
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        offsets, packed, tids, tsc, row_starts, total_rows, num_docs = args
+        counts = (row_starts[1:] - row_starts[:-1]).cpu().numpy()
+        _t, anchors, scores = search_step.gather_runs(offsets, packed, tids.to(torch.int64), tsc, counts)
+
+        def library():
+            return torch.full((num_docs,), float("-inf"), device="cuda").scatter_reduce_(
+                0, anchors, scores, "amax")
+
+        k_ms = time_ms(lambda: postings.dense_resolve(*args), iters=10)
+        p_ms = time_ms(lambda: postings.dense_resolve_plain(*args), warmup=1, iters=3, reps=5)
+        l_ms = time_ms(library, iters=10)
+        bound_ms, bound_by = dense_bound(args)
+        row = dict(shape=name, terms=int(tids.shape[0]), rows=int(total_rows), docs=int(num_docs),
+                   hits=int((got > 0).sum()), equal=True, max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
+                   library_ms=l_ms, bound_ms=bound_ms, bound_by=bound_by)
+        rows[name] = row
+        log(f"kernel dense_resolve {name}: T={row['terms']}, rows={total_rows}, docs={num_docs}, "
+            f"hits={row['hits']}: equal, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, scatter_reduce_ "
+            f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    report["dense_rows"] = list(rows.values())
+    return rows
+
+
 def kernel_only_ms(fn, kernel: str, calls: int = 20) -> float:
     """Mean device time of ``kernel``'s own events per call of ``fn`` under
     torch.profiler: the kernel alone, without the host launch path a CUDA
@@ -441,18 +591,18 @@ def kernel_only_ms(fn, kernel: str, calls: int = 20) -> float:
     return total_us / 1e3 / calls if total_us else float("nan")
 
 
-def profile_phase(vt, index, requests_of, make, report):
-    """One batch of each mix under torch.profiler: the share of the wall
-    time the device was busy, and the kernels that took it (the profiler's
-    own overhead inflates the wall time, so the share is a lower bound)."""
+def profile_phase(profiled, report):
+    """Each mix's profiled requests under torch.profiler: the share of the
+    wall time the device was busy, and the kernels that took it (the
+    profiler's own overhead inflates the wall time, so the share is a lower
+    bound). ``profiled``: name -> (requests, a function that answers them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for name, batches in requests_of.items():
-        reqs = [make(d, index) for d in batches[1]]
+    for name, (reqs, answer) in profiled.items():
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            vt.search_batch(reqs, index)
+            answer(reqs)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         # device-side events only: an operator's own row repeats its kernels' time
@@ -565,8 +715,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import veloci_tpu_torch as vt
     from veloci_tpu_torch.ops import _build
-    from veloci_tpu_torch.ops import levenshtein, levenshtein_sweep
-    from veloci_tpu_torch.search import field_search
+    from veloci_tpu_torch.ops import levenshtein, levenshtein_sweep, postings, search_step
+    from veloci_tpu_torch.search import executor, field_search
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -652,6 +802,8 @@ def main() -> None:
         for w in rng.choice(vocab, size=SINGLES, p=probs)
     ]
 
+    ex_mixes = executor_mixes(vocab, probs, mixes["generic"][0])
+
     def make(spec, idx):
         """A request dict, or a query string or generator parameters through
         the query generator."""
@@ -661,9 +813,18 @@ def main() -> None:
             return vt.search_query(idx, vt.SearchQueryGeneratorParameters.from_dict(spec["generator"]))
         return vt.Request.from_dict(spec)
 
+    def answer(name, reqs, idx):
+        """A batched mix's batch through search_batch; an executor mix's
+        requests one by one through search."""
+        if name in DENSE_ONLY:
+            return [vt.search(r, idx, dense_only=DENSE_ONLY[name]) for r in reqs]
+        return vt.search_batch(reqs, idx)
+
     for name, batches in mixes.items():  # warm-up: first-touch allocations
         vt.search_batch([make(d, index) for d in batches[0]], index)
     vt.search_batch([make(singles[0], index)], index)
+    for name, reqs in ex_mixes.items():  # the executor's first requests, timed again below
+        answer(name, [make(d, index) for d in reqs[:4]], index)
     torch.cuda.synchronize()
 
     gc_full_ms = []  # full (generation 2) garbage collections during the main path
@@ -680,7 +841,9 @@ def main() -> None:
         for name in ("levenshtein_sweep_banded_batch", "levenshtein_sweep_banded",
                      "levenshtein_sweep_full_batch")
     }
+    kernel_fns["dense_resolve"] = postings.dense_resolve
     requests_of = dict(mixes, single_fuzzy_d2=[[d] for d in singles])
+    requests_of.update({name: [[d] for d in reqs] for name, reqs in ex_mixes.items()})
     # the main paths, each with the kernels it must launch: the single-leaf
     # requests, then the query-string trees
     paths = (
@@ -690,37 +853,49 @@ def main() -> None:
          ("levenshtein_sweep_banded_batch", "levenshtein_sweep_full_batch")),
         ("generic", ("generic",),
          ("levenshtein_sweep_banded_batch", "levenshtein_sweep_full_batch")),
+        ("executor", tuple(ex_mixes), ("dense_resolve", "levenshtein_sweep_banded")),
     )
     answers = {}
     lat = {}
     rows_per_batch = {}  # posting rows gathered per batch, by mix
     path_launches = {}
+    path_routes = {}
     full_calls = []  # the query_string mix's full-width launches
+    dense_calls = []  # the multi_term mix's leaves
     gc.callbacks.append(on_gc)
     for path, names, needed in paths:
         for fn in kernel_fns.values():
             fn.launches = 0
+        routes0 = dict(index.path_counts)
         for name in names:
             lat[name], answers[name], rows_per_batch[name] = [], [], []
             if name == "query_string":
                 real_full = record_full_launches(field_search, index, full_calls)
+            if name == "multi_term":
+                real_dense = record_dense_leaves(executor, dense_calls)
             for batch in requests_of[name]:
                 reqs = [make(d, index) for d in batch]
                 rows0 = sum(index.gathered_rows.values())
                 t0 = time.perf_counter()
-                res = vt.search_batch(reqs, index)
+                res = answer(name, reqs, index)
                 lat[name].append(time.perf_counter() - t0)
                 rows_per_batch[name].append(sum(index.gathered_rows.values()) - rows0)
                 answers[name].append(res)
             if name == "query_string":
                 field_search.levenshtein_sweep_full_batch = real_full
+            if name == "multi_term":
+                executor.resolve_to_anchor_dense = real_dense
         torch.cuda.synchronize()
         path_launches[path] = {name: fn.launches for name, fn in kernel_fns.items()}
-        log(f"main path {path} launches: {path_launches[path]}")
+        path_routes[path] = {k: v - routes0.get(k, 0) for k, v in index.path_counts.items()
+                             if v != routes0.get(k, 0)}
+        log(f"main path {path} launches: {path_launches[path]}; routes: {path_routes[path]}")
         for k in needed:
             if path_launches[path][k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched by the main path {path}")
     gc.callbacks.remove(on_gc)
+    if path_routes["executor"].get("executor", 0) <= 0:
+        raise AssertionError("the executor path answered no request on the dense executor")
     gen = path_launches["generic"]
     log(f"generic mix launches: B1 (banded, batch) {gen['levenshtein_sweep_banded_batch']}, "
         f"B3 (full-width) {gen['levenshtein_sweep_full_batch']}")
@@ -729,11 +904,14 @@ def main() -> None:
     log(f"main path: {len(gc_full_ms)} full garbage collections, "
         f"ms each: {[round(t, 1) for t in gc_full_ms]}")
     for name, rows in rows_per_batch.items():
+        if name in DENSE_ONLY:
+            continue
         log(f"rows gathered per batch {name:>16}: median {int(np.median(rows))}, "
             f"max {max(rows)}")
     report["slice"]["gc_full_ms"] = gc_full_ms
     report["slice"]["rows_per_batch"] = rows_per_batch
     report["slice"]["path_launches"] = path_launches
+    report["slice"]["path_routes"] = path_routes
     main_full = main_path_shape(levenshtein_sweep, full_calls, baseline, report)
     del full_calls
 
@@ -758,7 +936,7 @@ def main() -> None:
             n_check = CPU_CHECKED_BATCHES
         t0 = time.perf_counter()
         for batch, res in list(zip(requests_of[name], results))[:n_check]:
-            cpu = vt.search_batch([make(d, cpu_index) for d in batch], cpu_index)
+            cpu = answer(name, [make(d, cpu_index) for d in batch], cpu_index)
             for a, b, d in zip(res, cpu, batch):
                 if result_key(a) != result_key(b):
                     raise AssertionError(f"GPU != CPU plain path for {d}")
@@ -768,7 +946,7 @@ def main() -> None:
         f"requests identical to the CPU plain path")
 
     for name, samples in lat.items():
-        n_req = 1 if name.startswith("single") else BATCH
+        n_req = 1 if name.startswith("single") or name in DENSE_ONLY else BATCH
         ms = np.array(samples) * 1e3
         row = dict(batch=n_req, batches=len(ms), p50_ms=float(np.percentile(ms, 50)),
                    p99_ms=float(np.percentile(ms, 99)),
@@ -777,7 +955,24 @@ def main() -> None:
         log(f"slice {name:>16}: batch {n_req:>3} x {len(ms)}: p50 {row['p50_ms']:.3f} ms, "
             f"p99 {row['p99_ms']:.3f} ms, {row['qps']:.1f} QPS")
 
-    profile_phase(vt, index, requests_of, make, report)
+    # ---- kernel B7 at the main path's largest multi-term leaf and on a 6M-document plane
+    leaves = [postings.dense_resolve_args(index, *c) for c in dense_calls]
+    largest = max((a for a in leaves if a is not None), key=lambda a: a[5])
+    del dense_calls, leaves
+    dense_rows = dense_phase(postings, search_step, {
+        "title multi-term leaf": largest,
+        "synthetic 6M docs": synthetic_dense_inputs(),
+    }, report)
+    torch.cuda.empty_cache()
+
+    profiled = {name: ([make(d, index) for d in batches[1]], lambda reqs: vt.search_batch(reqs, index))
+                for name, batches in requests_of.items() if name not in DENSE_ONLY}
+    profiled.update({
+        name: ([make(d, index) for d in reqs[:PROFILED_EXECUTOR_REQUESTS]],
+               lambda reqs, name=name: answer(name, reqs, index))
+        for name, reqs in ex_mixes.items()
+    })
+    profile_phase(profiled, report)
     enc, n_chars = levenshtein.encode_query(mutate(str(title_words[len(title_words) // 3]), 1, rng))
     b2_query = torch.from_numpy(enc).cuda()
     b2_qlen = torch.tensor([n_chars], dtype=torch.int32, device="cuda")
@@ -815,6 +1010,15 @@ def main() -> None:
          "plain_ms": main_full["plain_ms"], "bound_ms": main_full["bound_ms"],
          "bound_by": main_full["bound_by"], "library_ms": None},
     ]
+    # B7 at the main path's largest multi-term leaf; the library call is one
+    # scatter_reduce_ "amax" over the rows the plain version gathers
+    b7 = dense_rows["title multi-term leaf"]
+    kernels.append(
+        {"name": "dense_resolve", "route": "cuda", "source": "veloci_tpu_torch/csrc/dense_resolve.cu",
+         "replaces": "veloci_tpu/ops/postings.py:83", "launches": launches["dense_resolve"],
+         "max_abs_err": max(r["max_abs_err"] for r in dense_rows.values()), "ms": b7["kernel_ms"],
+         "plain_ms": b7["plain_ms"], "bound_ms": b7["bound_ms"], "bound_by": b7["bound_by"],
+         "library_ms": b7["library_ms"]})
     report["kernels"] = kernels
     report["launches"] = launches
     out_dir = ROOT / "chiprun_out"

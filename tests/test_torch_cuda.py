@@ -1,7 +1,8 @@
 """Port tests that need a CUDA device: the hand-written sweep kernels (banded
-and full-width) against their plain PyTorch versions on the card, and the
-slice on the card against the same index on the CPU. Tolerance: exact
-equality (integer outputs; the same f32 products, and sums taken in the
+and full-width) and the dense resolve against their plain PyTorch versions
+on the card, and the slice (``search_batch`` and ``search``) on the card
+against the same index on the CPU. Tolerance: exact equality (integer
+outputs; the same f32 products, maxima order-free, and sums taken in the
 same order, on both devices).
 
 They carry the ``cuda`` marker and skip where no card is present. This file
@@ -21,9 +22,11 @@ from veloci_tpu_torch import (
     SearchQueryGeneratorParameters,
     TorchIndex,
     create_indices_from_str,
+    search,
     search_batch,
     search_query,
 )
+from veloci_tpu_torch.ops.postings import dense_resolve, dense_resolve_plain
 from veloci_tpu_torch.ops.levenshtein import encode_query
 from veloci_tpu_torch.ops.levenshtein_sweep import (
     levenshtein_sweep_banded,
@@ -176,3 +179,82 @@ def test_generic_route_on_card_equals_cpu(card):
             assert a.num_hits == b.num_hits and a.facets == b.facets
             assert [(h.id, h.score) for h in a.data] == [(h.id, h.score) for h in b.data]
     assert on_card.path_counts["batched_generic"] == len(reqs) + 1
+
+
+@pytest.mark.cuda
+def test_dense_resolve_equals_plain_on_card(card):
+    """Kernel B7 against its plain version: repeated anchors across terms,
+    empty runs, a repeated term, anchors past num_docs; bit-equal."""
+    rng = np.random.default_rng(13)
+    num_keys, num_docs = 4000, 50_000
+    counts = rng.integers(0, 3000, num_keys)
+    counts[rng.random(num_keys) < 0.2] = 0
+    offsets = np.zeros(num_keys + 2, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:-1])
+    offsets[-1] = offsets[-2]
+    anchors = np.concatenate([np.sort(rng.choice(num_docs + 50, size=c, replace=False)) for c in counts])
+    scores01 = rng.integers(0, 60000, len(anchors)).astype(np.float32) / np.float32(100.0)
+    packed = torch.from_numpy(np.stack([anchors.astype(np.int32), scores01.view(np.int32)], axis=1)).to(card)
+    offsets_t = torch.from_numpy(offsets).to(card)
+    for t in (0, 1, 7, 600):
+        tids = rng.integers(0, num_keys, t)
+        if t > 1:
+            tids[1] = tids[0]
+        starts = np.zeros(t + 1, dtype=np.int64)
+        np.cumsum(offsets[tids + 1] - offsets[tids], out=starts[1:])
+        args = (offsets_t, packed, torch.from_numpy(tids.astype(np.int32)).to(card),
+                torch.from_numpy((rng.integers(1, 400, t) / np.float32(37.0)).astype(np.float32)).to(card),
+                torch.from_numpy(starts).to(card), int(starts[-1]), num_docs)
+        before = dense_resolve.launches
+        got = dense_resolve(*args)
+        want = dense_resolve_plain(*args)
+        torch.cuda.synchronize()
+        assert dense_resolve.launches == before + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert t == 0 or int((got > 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_executor_on_card_equals_cpu(card):
+    """``search`` on the card against the CPU plain path: deep trees,
+    leaves with several terms, a 1:n boost, facets past the batched gate
+    and the executor's extras; ids, scores, num_hits and facets identical."""
+    rng = np.random.default_rng(14)
+    vocab = [f"w{i:x}{'abcdefgh'[i % 8] * (1 + i % 7)}" for i in range(800)]
+    docs = "\n".join(
+        '{"title": "pa pb %s", "cat": "c%d", "pop": %d, "nr": "%d", "parts": [{"name": "%s", "rank": %d}, '
+        '{"name": "%s", "rank": %d}]}'
+        % (" ".join(rng.choice(vocab, size=5)), rng.integers(16), rng.integers(0, 1000), i,
+           rng.choice(vocab[:50]), rng.integers(0, 9), rng.choice(vocab[:50]), rng.integers(0, 9))
+        for i in range(3000)
+    )
+    config = ('["*GLOBAL*"]\nfeatures = ["All"]\n["cat"]\nfacet = true\n["pop".boost]\nboost_type = "f32"\n'
+              '["parts[].rank".boost]\nboost_type = "f32"\n')
+    pers = Persistence.from_built(create_indices_from_str(docs, config))
+    on_cpu = TorchIndex.from_persistence(pers, "cpu")
+    on_card = TorchIndex.from_persistence(pers, card)
+
+    def leaf(t, path="title", **kw):
+        return {"search": dict({"terms": t if isinstance(t, list) else [t], "path": path}, **kw)}
+
+    def node(kind, *qs):
+        return {kind: {"queries": list(qs)}}
+
+    dicts = [
+        {"search_req": node("and", node("or", node("and", leaf("w1bb"), leaf("w2ccc", levenshtein_distance=1)),
+                                        leaf("w1", starts_with=True)), leaf("pa"))},
+        {"search_req": leaf(["w1bb", "w2ccc"], levenshtein_distance=1), "facets": [{"field": "nr", "top": 3}]},
+        {"search_req": leaf(vocab[3], "parts[].name"),
+         "boost": [{"path": "parts[].rank", "boost_fun": "Log10", "param": 1}]},
+        {"search_req": node("or", leaf("w10"), leaf("w1bb")), "facets": [{"field": "cat"}],
+         "filter": leaf("c3", "cat"), "boost": [{"path": "pop", "boost_fun": "Log10", "param": 1}],
+         "phrase_boosts": [{"search1": leaf("pa")["search"], "search2": leaf("pb")["search"]}]},
+    ]
+    reqs = [Request.from_dict(d) for d in dicts]
+    before = dense_resolve.launches
+    for dense_only in (False, True):
+        for req in reqs:
+            a, b = search(req, on_card, dense_only=dense_only), search(req, on_cpu, dense_only=dense_only)
+            assert a.num_hits == b.num_hits > 0 and a.facets == b.facets
+            assert [(h.id, h.score) for h in a.data] == [(h.id, h.score) for h in b.data]
+    assert on_card.path_counts["executor"] == len(reqs) + 3 and dense_resolve.launches > before

@@ -39,7 +39,7 @@ from veloci_tpu.query.generator import SearchQueryGeneratorParameters as RefPara
 from veloci_tpu.query.generator import search_query as ref_search_query
 from veloci_tpu_torch import Persistence as PortPersistence
 from veloci_tpu_torch import Request as PortRequest
-from veloci_tpu_torch import SearchQueryGeneratorParameters, TorchIndex, load_index, search_batch
+from veloci_tpu_torch import SearchQueryGeneratorParameters, TorchIndex, load_index, search, search_batch
 from veloci_tpu_torch import add_token_values_to_tokens as port_add_token_values
 from veloci_tpu_torch import create_indices_from_str, search_query
 from veloci_tpu_torch.ops.generic_step import _precompute_boost
@@ -385,32 +385,56 @@ def test_cases_cover_the_routes(built, batched):
 
 
 # extras the reference's _generic_eligible sends to its per-request
-# executor: the port raises naming A7; a regex leaf raises naming A8 (the
+# executor: the port answers them on its executor as the reference's
+# executor does ("executor"), or raises the executor's error; boost_term and
+# text_locality raise naming A13; a regex leaf raises naming A8 (the
 # reference resolves it on the host)
 OUT_OF_SLICE = {
-    "boost_one_to_n_path": (_with(_leaf("w0a"), boost=[{"path": "labels[]", "boost_fun": "Multiply"}]), "A7"),
-    "boost_without_column": (_with(_leaf("w0a"), boost=[{"path": "nr", "boost_fun": "Multiply"}]), "A7"),
-    "facet_past_gate": (_with(_leaf("w0a"), facets=[{"field": "nr"}]), "A7"),
+    "boost_one_to_n_path": (_with(_leaf("w0a"), boost=[{"path": "labels[]", "boost_fun": "Multiply"}]), "executor"),
+    "boost_without_column": (_with(_leaf("w0a"), boost=[{"path": "nr", "boost_fun": "Multiply"}]), "VelociError"),
+    "facet_past_gate": (_with(_leaf("w0a"), facets=[{"field": "nr"}]), "executor"),
     "phrase_two_fields": (_with(_leaf("w0a"), phrase_boosts=[{"search1": {"terms": ["pa"], "path": "title"},
-                                                              "search2": {"terms": ["pb"], "path": "tags"}}]), "A7"),
-    "boost_term": (_with(_leaf("w0a"), boost_term=[{"terms": ["w1bb"], "path": "title", "boost": 2.0}]), "A7"),
-    "text_locality": (_with(_leaf("w0a"), text_locality=True, **CAT), "A7"),
+                                                              "search2": {"terms": ["pb"], "path": "tags"}}]),
+                          "InvalidRequestError"),
+    "boost_term": (_with(_leaf("w0a"), boost_term=[{"terms": ["w1bb"], "path": "title", "boost": 2.0}]), "A13"),
+    "text_locality": (_with(_leaf("w0a"), text_locality=True, **CAT), "A13"),
     "regex_in_filter": (_with(_leaf("w0a"), filter={"search": {"terms": ["c1.*"], "path": "cat",
                                                                "is_regex": True}}), "A8"),
 }
 
 
+def _outcome(call):
+    """The result, or the raised error's class name."""
+    try:
+        return call()
+    except Exception as e:  # noqa: BLE001 -- the error type is the outcome compared
+        return type(e).__name__
+
+
 @pytest.mark.parametrize("name", list(OUT_OF_SLICE))
 def test_out_of_slice_raises(built, name):
     pers, _ref, indexes, _routes, _ref_route = built
-    req, item = OUT_OF_SLICE[name]
-    if item == "A7":
+    req, expect = OUT_OF_SLICE[name]
+    if expect != "A8":
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(batch_mod, "SMALL_DOCS", 1)
             assert batch_mod._generic_eligible(Request.from_dict(req), pers, pers.device_combined()) is None
-    ok = PortRequest.from_dict(CASES["facets"])
-    with pytest.raises(NotImplementedError, match=item):
-        search_batch([ok, PortRequest.from_dict(req)], indexes["ref_disk"])
+    index = indexes["ref_disk"]
+    batch = [PortRequest.from_dict(CASES["facets"]), PortRequest.from_dict(req)]
+    if expect in ("A8", "A13"):
+        with pytest.raises(NotImplementedError, match=expect):
+            search_batch(batch, index)
+        return
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ex_mod, "SMALL_DOCS", 0)
+        want = _outcome(lambda: ex_mod.search(Request.from_dict(req), pers, dense_only=True))
+    before = index.path_counts["executor"]
+    got = _outcome(lambda: search_batch(batch, index)[1])
+    if expect != "executor":
+        assert got == want == expect
+        return
+    _assert_parity(got, want, name)
+    assert index.path_counts["executor"] == before + 1 and got.num_hits > 0
 
 
 def test_dropped_caps_are_exceeded(built):
@@ -496,14 +520,10 @@ def test_facet_gates_follow_the_reference(built):
 
 # ---------------------------------------------------------------- goldens
 GOLDENS = json.load(open(os.path.join(os.path.dirname(__file__), "goldens.json")))["entries"]
-# the entries the reference answers on its per-request executor only: a
-# boost over a 1:n path, boost_term, text_locality
+# the entries the port does not answer yet: boost_term, text_locality (A13)
 NOT_ADMITTED = {
     i for i, e in enumerate(GOLDENS)
-    if e["kind"] == "request" and (
-        any("[]" in b["path"] for b in e["request"].get("boost") or ())
-        or e["request"].get("boost_term") or e["request"].get("text_locality")
-    )
+    if e["kind"] == "request" and (e["request"].get("boost_term") or e["request"].get("text_locality"))
 }
 
 
@@ -518,25 +538,43 @@ def golden_indexes():
     return TorchIndex.from_persistence(pers, "cpu"), TorchIndex.from_persistence(synth, "cpu")
 
 
+def _golden_request(entry, golden_indexes):
+    index, synth = golden_indexes
+    if entry["kind"] == "request":
+        return PortRequest.from_dict(dict(entry["request"])), index
+    if entry["kind"] == "query":
+        return search_query(index, SearchQueryGeneratorParameters(search_term=entry["query"])), index
+    return PortRequest.from_dict({"search_req": {"search": {"terms": [entry["term"]], "path": "title"}}}), synth
+
+
 @pytest.mark.parametrize("i", range(len(GOLDENS)))
 def test_golden(i, golden_indexes):
-    """The port against the frozen goldens, with test_goldens.py's
-    tolerance (scores rounded to 4 decimals); an entry the port does not
-    admit raises naming its ROADMAP item."""
-    index, synth = golden_indexes
-    entry = GOLDENS[i]
-    if entry["kind"] == "request":
-        req = PortRequest.from_dict(dict(entry["request"]))
-    elif entry["kind"] == "query":
-        req = search_query(index, SearchQueryGeneratorParameters(search_term=entry["query"]))
-    else:
-        index = synth
-        req = PortRequest.from_dict({"search_req": {"search": {"terms": [entry["term"]], "path": "title"}}})
+    """The port's search_batch against the frozen goldens, with
+    test_goldens.py's tolerance (scores rounded to 4 decimals); an entry
+    the port does not admit raises naming its ROADMAP item."""
+    req, index = _golden_request(GOLDENS[i], golden_indexes)
     if i in NOT_ADMITTED:
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(NotImplementedError, match="A13"):
             search_batch([req], index)
         return
-    (res,) = search_batch([req], index)
+    _check_golden(GOLDENS[i], search_batch([req], index)[0])
+
+
+@pytest.mark.parametrize("i", range(len(GOLDENS)))
+def test_golden_search(i, golden_indexes):
+    """The same goldens through ``search``, one request at a time, and
+    through its dense executor."""
+    req, index = _golden_request(GOLDENS[i], golden_indexes)
+    if i in NOT_ADMITTED:
+        for dense_only in (False, True):
+            with pytest.raises(NotImplementedError, match="A13"):
+                search(req, index, dense_only=dense_only)
+        return
+    _check_golden(GOLDENS[i], search(req, index))
+    _check_golden(GOLDENS[i], search(req, index, dense_only=True))
+
+
+def _check_golden(entry, res):
     assert res.num_hits == entry["num_hits"]
     assert [[h.id, round(float(h.score), 4)] for h in res.data[:10]] == [list(x) for x in entry["top"]]
     if entry.get("facets"):

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from veloci_tpu_torch import (
     Persistence, Request, SearchQueryGeneratorParameters, create_indices_from_str, load_index,
-    search_batch, search_query,
+    search, search_batch, search_query,
 )
 
 rng = np.random.default_rng(3)
@@ -56,6 +56,14 @@ reqs = [search_query(index, SearchQueryGeneratorParameters(search_term=q))
         for q in ("hel*", "hello AND wor*", "word OR hello AND help")]
 res = search_batch(reqs, index)
 assert all(r.num_hits > 0 and r.data for r in res), res
+leaf = lambda t, **kw: {"search": dict(terms=[t] if isinstance(t, str) else t, path="title", **kw)}
+deep = {"and": {"queries": [{"or": {"queries": [{"and": {"queries": [leaf("hello"), leaf("wrd", levenshtein_distance=1)]}},
+                                                leaf("hel", starts_with=True)]}}, leaf("help")]}}
+for d in ({"search_req": deep}, {"search_req": leaf(["world", "x"])}, {"search_req": leaf("hello")}):
+    res = search(Request.from_dict(d), index)
+    assert res.num_hits > 0 and res.data, res
+    assert search(Request.from_dict(d), index, dense_only=True).data == res.data
+assert index.path_counts["executor"] == 5, index.path_counts
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (m == "jax" or m.startswith("jax."))]
 assert not loaded, loaded
 assert sys.argv[1] != "block" or sys.modules["jax"] is None

@@ -262,29 +262,55 @@ def test_sweep_entry_points_run_on_cpu(built):
 
 
 # the A6 shapes the port answers (filter, phrase_boosts, token_value,
-# filter_on_tree) are parity cases of test_torch_generic.py; a boost or facet
-# on "nr" (no boost column; more facet values than the reference's gate)
-# goes to the reference's per-request executor, so the port raises (A7)
+# filter_on_tree) are parity cases of test_torch_generic.py. The shapes
+# the reference answers on its per-request executor only go to the port's
+# executor: a facet on "nr" (more values than the batched gate), leaves
+# with several terms, deeper trees, node options; their answers equal the
+# reference executor's, and a boost on "nr" (no boost column) raises its
+# VelociError. The rest raise NotImplementedError naming their ROADMAP item.
 OUT_OF_SLICE = {
-    "request_boost": dict(_leaf("w1bb"), boost=[{"path": "nr", "boost_fun": "Log10"}]),
-    "facets": dict(_leaf("w1bb"), facets=[{"field": "nr"}]),
-    "why_found": dict(_leaf("w1bb"), why_found=True),
-    "explain": dict(_leaf("w1bb"), explain=True),
-    "regex": _leaf("w1.*", is_regex=True),
-    "snippet": _leaf("w1bb", snippet=True),
-    "leaf_options": _leaf("w1bb", options={"explain": True}),
-    "two_terms": {"search_req": {"search": {"terms": ["a", "b"], "path": "title"}}},
-    "four_alternations": _or(_and(_or(_and(_leaf("a"), _leaf("b")), _leaf("c")), _leaf("d")), _leaf("e")),
-    "regex_in_and": _and(_leaf("w1bb"), _leaf("w1.*", is_regex=True)),
-    "two_terms_in_or": _or(_leaf("w1bb"), {"search_req": {"search": {"terms": ["a", "b"], "path": "title"}}}),
-    "tree_node_options": {"search_req": {"and": {"queries": [_leaf("a")["search_req"], _leaf("b")["search_req"]],
-                                                 "options": {"top": 3}}}},
+    "request_boost": (dict(_leaf("w1bb"), boost=[{"path": "nr", "boost_fun": "Log10"}]), "VelociError"),
+    "facets": (dict(_leaf("w1bb"), facets=[{"field": "nr"}]), "executor"),
+    "why_found": (dict(_leaf("w1bb"), why_found=True), "A13"),
+    "explain": (dict(_leaf("w1bb"), explain=True), "A13"),
+    "regex": (_leaf("w1.*", is_regex=True), "A8"),
+    "snippet": (_leaf("w1bb", snippet=True), "A9"),
+    "leaf_options": (_leaf("w1bb", options={"explain": True}), "A13"),
+    "two_terms": ({"search_req": {"search": {"terms": ["w1bb", "b"], "path": "title"}}}, "executor"),
+    "four_alternations": (_or(_and(_or(_and(_leaf("w1bb"), _leaf("w2ccc")), _leaf("w0a")), _leaf("w10")),
+                              _leaf("w3dddd")), "executor"),
+    "regex_in_and": (_and(_leaf("w1bb"), _leaf("w1.*", is_regex=True)), "A8"),
+    "two_terms_in_or": (_or(_leaf("w1bb"), {"search_req": {"search": {"terms": ["w2ccc", "b"], "path": "title"}}}),
+                        "executor"),
+    "tree_node_options": ({"search_req": {"and": {"queries": [_leaf("w0a")["search_req"],
+                                                              _leaf("w1bb")["search_req"]],
+                                                  "options": {"top": 3}}}}, "executor"),
 }
 
 
 @pytest.mark.parametrize("name", list(OUT_OF_SLICE))
 def test_out_of_slice_raises(built, name):
-    _pers, _ref, indexes = built
-    ok = PortRequest.from_dict(CASES["exact_hit"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search_batch([ok, PortRequest.from_dict(OUT_OF_SLICE[name])], indexes["disk"])
+    pers, _ref, indexes = built
+    req, expect = OUT_OF_SLICE[name]
+    index = indexes["disk"]
+    batch = [PortRequest.from_dict(CASES["exact_hit"]), PortRequest.from_dict(req)]
+    if expect.startswith("A"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {expect}"):
+            search_batch(batch, index)
+        return
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ex_mod, "SMALL_DOCS", 0)
+        try:
+            want = ex_mod.search(Request.from_dict(req), pers, dense_only=True)
+        except Exception as e:  # noqa: BLE001 -- the error type is what is compared
+            want = type(e).__name__
+    if expect != "executor":
+        with pytest.raises(Exception) as err:
+            search_batch(batch, index)
+        assert type(err.value).__name__ == want == expect
+        return
+    before = index.path_counts["executor"]
+    got = search_batch(batch, index)[1]
+    assert index.path_counts["executor"] == before + 1
+    _assert_parity(got, want, name)
+    assert got.num_hits > 0

@@ -7,17 +7,25 @@ the native indexer, on-disk format, term dictionaries, request model, query
 generator) are its own copies of the reference's, writing and reading the
 same index files and building the same request trees.
 
-Current slice: :func:`search_batch` over requests whose tree is a search
-leaf, a flat OR or AND, an AND of ORs, or an OR of such ANDs, with leaves
-that are exact, fuzzy at any distance, or ``starts_with``, with or without
-token-value boosts -- which covers the query generator's output for query
-strings with ``*`` wildcards -- and with filters, boost columns, facets and
-phrase boosts. The Levenshtein sweeps are hand-written CUDA kernels
-(``csrc/banded_levenshtein.cu``, ``csrc/full_levenshtein.cu``). Other
-request shapes raise ``NotImplementedError``.
+Current slice: :func:`search_batch` answers requests whose tree is a
+search leaf, a flat OR or AND, an AND of ORs, or an OR of such ANDs, with
+leaves that are exact, fuzzy at any distance, or ``starts_with``, with or
+without token-value boosts -- which covers the query generator's output for
+query strings with ``*`` wildcards -- and with filters, boost columns,
+facets and phrase boosts, on its batched tree routes. :func:`search`
+answers one request: on those routes when they take it, else (deep trees,
+leaves with several terms, leaf and node boost options, 1:n boosts, facet
+fields past the batched gates) on the per-request dense executor, which
+``search_batch`` also hands such requests to. The Levenshtein sweeps and the
+executor's dense posting resolve are hand-written CUDA kernels
+(``csrc/banded_levenshtein.cu``, ``csrc/full_levenshtein.cu``,
+``csrc/dense_resolve.cu``). ``boost_term``, ``text_locality``,
+``why_found``, ``explain``, ``suggest``, regex leaves and leaf snippets
+raise ``NotImplementedError``.
 
     index = load_index("path/to/index")  # on the card; load_index(path, "cpu") on the CPU
     results = search_batch([Request.from_dict(d) for d in dicts], index)
+    result = search(Request.from_dict(d), index)
     query = search_query(index, SearchQueryGeneratorParameters(search_term="haus AND bu*"))
     results = search_batch([query], index)
 
@@ -30,6 +38,7 @@ from .persistence import Persistence, TorchIndex, load_index
 from .query.generator import SearchQueryGeneratorParameters, search_query
 from .query.request import Request
 from .search.batch import search_batch
+from .search.executor import search
 from .search.result import Hit, SearchResult
 
 __all__ = [
@@ -42,6 +51,7 @@ __all__ = [
     "add_token_values_to_tokens",
     "create_indices_from_str",
     "load_index",
+    "search",
     "search_batch",
     "search_query",
 ]

@@ -84,6 +84,12 @@ class Direct:
     def num_keys(self) -> int:
         return len(self.values)
 
+    def get_values_multi(self, keys: np.ndarray) -> np.ndarray:
+        """The values of many keys, absent ones skipped."""
+        keys = np.asarray(keys, dtype=np.int64)
+        vals = self.values[keys[(keys >= 0) & (keys < len(self.values))]]
+        return vals[vals != EMPTY]
+
 
 @dataclass
 class AnchorScoreCsr:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["score_desc_key", "rank_key", "segmented_topk"]
+__all__ = ["score_desc_key", "rank_key", "segmented_topk", "topk_dense"]
 
 _I31 = (1 << 31) - 1
 
@@ -44,3 +44,15 @@ def segmented_topk(seg, scores, ids, num_segments: int, k):
     keep = rank < k[seg_s]
     order = order[keep]
     return seg_s[keep], ids[order], scores[order]
+
+
+def topk_dense(dense: torch.Tensor, k: int):
+    """The first ``k`` hits (score > 0) of a dense ``[num_docs]`` plane by
+    (score desc, id desc): ``top_k_scores`` / ``topk_dense_exact``
+    (``veloci_tpu/ops/topk.py:91-123``). Returns ``(ids int64, scores f32)``
+    on the plane's device."""
+    ids = torch.nonzero(dense > 0).squeeze(1)
+    scores = dense[ids]
+    k = min(int(k), ids.shape[0])
+    _key, order = torch.topk(rank_key(scores, ids), k, largest=False, sorted=True)
+    return ids[order], scores[order]

@@ -419,6 +419,10 @@ class TorchIndex:
             or self.has_token_to_anchor(path)
         )
 
+    def tokenize_enabled(self, field: str) -> bool:
+        col = self.columns.get(_strip_textindex(field))
+        return bool(col and col["textindex_metadata"]["options"].get("tokenize", False))
+
     def is_anchor_identity_column(self, field: str) -> bool:
         col = self.columns.get(_strip_textindex(field))
         return bool(col and col.get("is_anchor_identity_column"))

@@ -30,9 +30,13 @@ The reference sends a request past its caps (leaf term counts, slots,
 groups, sort capacity, phrase anchors) to its per-request executor; here
 every admitted request is answered on its tree route, and a batch whose
 gathered posting rows exceed ``_ROW_BUDGET`` is split into several sorts.
-Every other request shape raises ``NotImplementedError`` naming the
-ROADMAP item that brings it (:data:`_ADMISSION`); no request falls through
-to another engine.
+The shapes the tree routes do not take -- the reference's own causes for
+its executor (``_generic_eligible``, ``:484-647``; ``:1062``) -- go to the
+per-request dense executor (:func:`.executor.search`), one request at a
+time, as there. The shapes outside the port raise ``NotImplementedError``
+naming the ROADMAP item that brings them. One table decides
+(:data:`_ADMISSION`); no request falls through to another engine on an
+error.
 """
 
 from __future__ import annotations
@@ -69,7 +73,7 @@ SEARCH, OR, AND = SearchRequest.SEARCH, SearchRequest.OR, SearchRequest.AND
 # (about 64 bytes a row across the key, score, order and run arrays)
 _ROW_BUDGET = 1 << 23
 
-_A7 = "A7 (per-request executor)"
+_A13 = "A13 (boost_term, text_locality, why_found, explain, suggest)"
 
 
 def _unsupported(what: str, item: str):
@@ -100,52 +104,71 @@ def _extra_parts(request):
         yield pb.search2
 
 
-# Admission: (route, predicate(request, index), reason). The first row whose
-# predicate holds decides: a route of None raises NotImplementedError with
-# the reason, naming the ROADMAP item that brings the shape; "generic" and
-# "plain" admit the request (its tree is then checked by _check_tree). The
-# raising rows are where the reference's _generic_eligible sends a request
-# to its per-request executor; its caps that exist only for the TPU compile
-# and memory model (_MAX_FILTER_ANCHORS on phrase anchors, the t/q/p pad
-# buckets, _MAX_LEAF_TERMS_FUZZY with its "fz" route) have no row.
+class _Tree(NamedTuple):
+    """What admission reads of a request's tree, from one pass over it."""
+
+    explain: bool  # a leaf's options ask for explain
+    regex: bool  # a regex leaf
+    snippet: bool  # a leaf asks for snippets
+    fits: bool  # the tree routes take every leaf and node
+
+
+def _scan(node, index) -> _Tree:
+    """One pass over the tree. The tree routes take it (``_leaf_ok``,
+    ``:52``) when every leaf has one term, no options and a field with
+    postings, and no node has options."""
+    explain = regex = snippet = False
+    fits = True
+    stack = [node]
+    while stack:
+        node = stack.pop()
+        if node.kind != SEARCH:
+            fits = fits and not node.options
+            stack.extend(node.queries)
+            continue
+        p = node.part
+        explain = explain or bool(p.options and p.options.get("explain"))
+        regex = regex or p.is_regex
+        snippet = snippet or bool(p.snippet)
+        fits = fits and len(p.terms) == 1 and not p.options and leaf_field(p) in index.key_base
+    return _Tree(explain, regex, snippet, fits)
+
+
+# Admission: (route, predicate(request, index, _Tree), reason). The first
+# row whose predicate holds decides: a route of None raises
+# NotImplementedError with the reason, naming the ROADMAP item that brings
+# the shape; "executor" sends the request to the per-request dense
+# executor; "generic" and "plain" admit it to the tree routes, unless its
+# tree is beyond OR(AND(OR)) once flattened (_plan), which goes to the
+# executor too. The executor rows are where the reference's
+# _generic_eligible sends a request to its executor; its caps that exist
+# only for the TPU compile and memory model (_MAX_FILTER_ANCHORS on phrase
+# anchors, the t/q/p pad buckets, _MAX_LEAF_TERMS_FUZZY with its "fz"
+# route) have no row. Admission runs for every request of a batch, so the
+# tree is read once (_scan) and each row reads its flags.
 _ADMISSION = (
-    (None, lambda r, ix: r.boost_term, ("request 'boost_term'", _A7)),
-    (None, lambda r, ix: r.why_found, ("request 'why_found'", _A7)),
-    (None, lambda r, ix: r.text_locality, ("request 'text_locality'", _A7)),
-    (None, lambda r, ix: r.explain, ("request 'explain'", _A7)),
-    (None, lambda r, ix: r.suggest, ("request 'suggest'", _A7)),
-    (None, lambda r, ix: any("[]" in b.path for b in r.boost or ()),
-     ("a boost over a 1:n path ('[]')", _A7)),
-    (None, lambda r, ix: any(not ix.has_index(_boost_path(b)) for b in r.boost or ()),
-     ("a boost path without a boost column", _A7)),
-    (None, lambda r, ix: any(facet_relation(ix, f.field) is None for f in r.facets or ()),
-     ("a facet field without a fast relation, or past the facet gates", _A7)),
-    (None, lambda r, ix: any(pb.search1.path != pb.search2.path for pb in r.phrase_boosts or ()),
-     ("a phrase boost over two fields", _A7)),
-    (None, lambda r, ix: any(p.is_regex for p in _extra_parts(r)),
-     ("a regex leaf in a filter or a phrase boost", "A8 (regex prefilter)")),
-    ("generic", lambda r, ix: _has_extras(r),
+    (None, lambda r, ix, t: r.boost_term, ("request 'boost_term'", _A13)),
+    (None, lambda r, ix, t: r.why_found, ("request 'why_found'", _A13)),
+    (None, lambda r, ix, t: r.text_locality, ("request 'text_locality'", _A13)),
+    (None, lambda r, ix, t: r.explain or t.explain, ("request or leaf 'explain'", _A13)),
+    (None, lambda r, ix, t: r.suggest, ("request 'suggest'", _A13)),
+    (None, lambda r, ix, t: t.regex or any(p.is_regex for p in _extra_parts(r)),
+     ("a regex leaf", "A8 (regex prefilter)")),
+    (None, lambda r, ix, t: t.snippet, ("leaf snippets", "A9 (highlight)")),
+    ("executor", lambda r, ix, t: any("[]" in b.path for b in r.boost or ()),
+     "a boost over a 1:n path ('[]')"),
+    ("executor", lambda r, ix, t: any(not ix.has_index(_boost_path(b)) for b in r.boost or ()),
+     "a boost path without a boost column"),
+    ("executor", lambda r, ix, t: any(facet_relation(ix, f.field) is None for f in r.facets or ()),
+     "a facet field without a fast relation, or past the facet gates"),
+    ("executor", lambda r, ix, t: any(pb.search1.path != pb.search2.path for pb in r.phrase_boosts or ()),
+     "a phrase boost over two fields (the executor raises InvalidRequestError)"),
+    ("executor", lambda r, ix, t: not t.fits,
+     "leaves with several terms, leaf or node options, or a field without postings"),
+    ("generic", lambda r, ix, t: _has_extras(r),
      "filter, boost columns, facets or phrase boosts: the tree routes with their extras"),
-    ("plain", lambda r, ix: True, "a plain tree: the singles and tree routes"),
+    ("plain", lambda r, ix, t: True, "a plain tree: the singles and tree routes"),
 )
-
-
-def _check_tree(node) -> None:
-    """Raise for leaves and nodes the tree routes do not take (``_leaf_ok``,
-    ``:52``)."""
-    if node.kind != SEARCH:
-        if node.options:
-            raise _unsupported("tree node options", _A7)
-        for q in node.queries:
-            _check_tree(q)
-        return
-    part = node.part
-    if len(part.terms) != 1:
-        raise _unsupported("a leaf with several terms", _A7)
-    if part.is_regex:
-        raise _unsupported("a regex leaf", "A8 (regex prefilter)")
-    if part.snippet or part.options:
-        raise _unsupported("leaf snippets and options", _A7)
 
 
 def _normalize_node(node):
@@ -257,10 +280,7 @@ def _resolve(index, qi, req, plan, fuzzy, memo) -> _Query:
         hit = memo.get(key)
         if hit is None:
             ids, scores = get_term_ids_in_field(index, part, fuzzy)
-            field = leaf_field(part)
-            if field not in index.key_base:
-                raise _unsupported(f"field {field!r} without postings", _A7)
-            base, nk = index.key_base[field]
+            base, nk = index.key_base[leaf_field(part)]
             keep = ids < nk
             hit = memo[key] = (ids[keep] + base, scores[keep])
         g.append(hit[0])
@@ -577,25 +597,27 @@ def _stage(dev, frow, panchors):
 
 
 def _plan(request, index):
-    """Admit a request (:data:`_ADMISSION`): ("flat", groups, generic) or
-    ("deep", subtrees, generic), or raise for shapes outside the slice."""
+    """Admit a request (:data:`_ADMISSION`): ("flat", groups, generic),
+    ("deep", subtrees, generic) or ("executor", None, False), or raise for
+    shapes outside the port."""
     if request.search_req is None:
         raise InvalidRequestError("search_req is required in search")
+    tree = _scan(request.search_req, index)
     for route, predicate, reason in _ADMISSION:
-        if predicate(request, index):
+        if predicate(request, index, tree):
             if route is None:
                 raise _unsupported(*reason)
             break
-    _check_tree(request.search_req)
-    node = _normalize_node(request.search_req)
-    generic = route == "generic"
-    groups = _node_groups(node)
-    if groups is not None:
-        return "flat", groups, generic
-    supers = _node_deep(node)
-    if supers is not None:
-        return "deep", supers, generic
-    raise _unsupported("a tree beyond OR(AND(OR))", _A7)
+    if route != "executor":
+        node = _normalize_node(request.search_req)
+        generic = route == "generic"
+        groups = _node_groups(node)
+        if groups is not None:
+            return "flat", groups, generic
+        supers = _node_deep(node)
+        if supers is not None:
+            return "deep", supers, generic
+    return "executor", None, False
 
 
 def _fuzzy_specs(requests):
@@ -608,19 +630,30 @@ def _fuzzy_specs(requests):
 
 
 def search_batch(requests: List, index) -> List[SearchResult]:
-    """Answer a batch of tree requests on ``index``'s device. Results equal
-    the reference's ``search_batch``: ids, order (score desc, id desc),
+    """Answer a batch of requests on ``index``'s device. Results equal the
+    reference's ``search_batch``: ids, order (score desc, id desc),
     ``num_hits``, facet lists and f32 scores (see :mod:`..ops.tree_step` for
-    the sum order of unions of three or more slots)."""
+    the sum order of unions of three or more slots). Requests the tree
+    routes do not take go to the per-request executor, one at a time."""
+    from .executor import search
+
     start = time.time_ns()
     plans = [_plan(req, index) for req in requests]
-    fuzzy = prefetch_fuzzy_matches(index, set(_fuzzy_specs(requests)))
+    results: List = [None] * len(requests)
+    for qi, (req, plan) in enumerate(zip(requests, plans)):
+        if plan[0] == "executor":
+            results[qi] = search(req, index, dense_only=True)
+    fuzzy = prefetch_fuzzy_matches(
+        index, set(_fuzzy_specs([r for r, p in zip(requests, plans) if p[0] != "executor"]))
+    )
 
     plain = {"single": [], "single_slot": [], "tree": [], "deep": []}
     generic: Dict[tuple, list] = {}  # (route, boost keys, facet fields) -> queries
     memo: dict = {}  # leaf key -> (global term ids, scores), for this batch
     for qi, (req, plan) in enumerate(zip(requests, plans)):
         kind, _shape, with_extras = plan
+        if kind == "executor":
+            continue
         q = _resolve(index, qi, req, plan, fuzzy, memo)
         if kind == "deep":
             route = "deep"
@@ -646,7 +679,6 @@ def search_batch(requests: List, index) -> List[SearchResult]:
     index.path_counts["batched_tree_deep"] += len(plain["deep"])
     index.path_counts["batched_generic"] += sum(len(v) for v in generic.values())
 
-    results: List = [None] * len(requests)
     for route, queries in plain.items():
         _answer(index, route, queries, requests, results, start)
     for (route, boost_keys, facet_fields), queries in generic.items():

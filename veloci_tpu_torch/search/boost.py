@@ -1,25 +1,54 @@
-"""Boost pieces of the batched route: score expressions, the single-hit boost
-a token-value leaf applies, and matched ids -> anchors for filters.
+"""Boost pieces: score expressions, the single-hit boost a token-value leaf
+applies, matched ids -> anchors for filters, and the per-request executor's
+boosts over a dense ``[num_docs]`` plane.
 
 Counterpart of ``ScoreExpression`` (``veloci_tpu/search/boost.py:53``),
-``apply_boost_scalar`` (``:102``), ``_expr_vec_jnp`` (``:277``) and
-``resolve_ids_to_anchor`` (``:309``); reference src/search/boost.rs and
-src/expression.rs. The per-document boost columns themselves apply at the
-tree route's candidate anchors (:mod:`..ops.generic_step`,
+``apply_boost_scalar`` (``:102``), ``apply_boost_dense_device`` (``:176``),
+``apply_anchor_boost_values_device`` (``:208``), ``scatter_factor_device``
+(``:258``), ``_expr_vec_jnp`` (``:277``), ``resolve_ids_to_anchor``
+(``:309``), ``boost_to_anchor_values`` (``:322``) and ``anchor_boost_accs``
+(``:382``); reference src/search/boost.rs and src/expression.rs. On the
+batched route the per-document boost columns apply at the tree route's
+candidate anchors (:mod:`..ops.generic_step`,
 :func:`..ops.tree_step._apply_boost_gathered`).
+
+The 1:n boosts and the phrase factor take small ``(anchor, value)`` lists
+that may name an anchor more than once. They are accumulated on the host,
+in list order, per distinct anchor (as the reference's XLA scatters apply
+them on the CPU), uploaded once and applied with a gather, so that the card
+and the CPU give the same bits; logarithms are taken on the host too.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..create import TEXT_ID_TO_ANCHOR
+from ..create import (
+    BOOST_VALID_TO_VALUE,
+    TEXT_ID_TO_ANCHOR,
+    TEXTINDEX,
+    TOKENS_TO_TEXT_ID,
+    VALUE_ID_TO_ANCHOR,
+    VALUE_ID_TO_PARENT,
+)
 from ..error import VelociError
+from ..indices import EMPTY, Direct
+from ..ops.generic_step import _HIT_EPS
 
-__all__ = ["ScoreExpression", "apply_boost_scalar", "expr_vec", "resolve_ids_to_anchor"]
+__all__ = [
+    "ScoreExpression",
+    "anchor_boost_accs",
+    "apply_anchor_boost_values_device",
+    "apply_boost_dense_device",
+    "apply_boost_scalar",
+    "boost_to_anchor_values",
+    "expr_vec",
+    "resolve_ids_to_anchor",
+    "scatter_factor_device",
+]
 
 _F32 = np.float32
 
@@ -123,3 +152,169 @@ def resolve_ids_to_anchor(index, path: str, ids: np.ndarray) -> np.ndarray:
     if tia is None:
         return np.empty(0, dtype=np.int64)
     return tia.get_values_multi(np.asarray(ids)).astype(np.int64)
+
+
+def apply_boost_dense_device(dense: torch.Tensor, pre) -> torch.Tensor:
+    """A boost column over the dense plane (``apply_boost_dense_device``,
+    ``:176``; ``pre`` from :func:`..ops.generic_step._precompute_boost`,
+    its factors computed on the host): only hits (score > 0) with a present
+    value are boosted, ``skip_when_score`` exempts scores within 1e-5 of a
+    listed value, and a boosted score floors at 1e-30."""
+    mode, fac, pres, skip, expr_add, _folded = pre
+    if mode == "mul":
+        boosted = dense * fac
+    elif mode == "add":
+        boosted = dense + fac
+    elif mode == "replace":
+        boosted = fac
+    else:
+        boosted = dense
+    if expr_add is not None:
+        boosted = boosted + expr_add
+    apply_mask = (dense > 0) & pres
+    for sv in skip:
+        apply_mask &= torch.abs(dense - float(np.float32(sv))) >= 1e-5
+    return torch.where(apply_mask, torch.clamp(boosted, min=_HIT_EPS), dense)
+
+
+def _has_values(store, keys: np.ndarray) -> np.ndarray:
+    """Per key of a relation column: whether it holds a value."""
+    ok = (keys >= 0) & (keys < store.num_keys)
+    safe = np.where(ok, keys, 0)
+    if isinstance(store, Direct):
+        return ok & (store.values[safe] != EMPTY)
+    return ok & (store.offsets[safe + 1] != store.offsets[safe])
+
+
+def boost_to_anchor_values(index, field_path: str, boost_part, matched_term_ids):
+    """The 1:n boost chain (``boost_to_anchor_values``, ``:322``; plan step
+    ``BoostToAnchor``, plan_steps.rs:207-233): token ids -> text ids ->
+    parent value ids -> boost values -> anchors. Returns ``(anchors int64,
+    boost values f32)`` in parent value id order, the anchor of a value its
+    first one in the boost field's ``.value_id_to_anchor``."""
+    path = field_path if field_path.endswith(TEXTINDEX) else field_path + TEXTINDEX
+    none = np.empty(0, np.int64), np.empty(0, _F32)
+    ids = np.asarray(matched_term_ids, dtype=np.int64)
+    tta = index.key_value_stores.get(path + TOKENS_TO_TEXT_ID)
+    if index.tokenize_enabled(path) and tta is not None and len(ids):
+        # a token with text ids maps to them, one without stays itself
+        has = _has_values(tta, ids)
+        ids = np.unique(np.concatenate([tta.get_values_multi(ids[has]).astype(np.int64), ids[~has]]))
+    v2p = index.key_value_stores.get(path + VALUE_ID_TO_PARENT)
+    if v2p is None:
+        return none
+    value_ids = np.unique(v2p.get_values_multi(ids).astype(np.int64))
+    boost_field = boost_part.path
+    if boost_field.endswith(BOOST_VALID_TO_VALUE):
+        boost_field = boost_field[: -len(BOOST_VALID_TO_VALUE)]
+    vals, present = index.get_boost(boost_field + BOOST_VALID_TO_VALUE)
+    keep = value_ids[value_ids < len(vals)]
+    keep = keep[present[keep]]
+    v2a = index.key_value_stores.get(boost_field + VALUE_ID_TO_ANCHOR)
+    if v2a is None:
+        return none
+    has = _has_values(v2a, keep)
+    keep = keep[has]
+    if isinstance(v2a, Direct):
+        anchors = v2a.values[keep]
+    else:
+        anchors = v2a.values[v2a.offsets[keep].astype(np.int64)]
+    return anchors.astype(np.int64), vals[keep].astype(_F32)
+
+
+class AnchorBoost(NamedTuple):
+    """A 1:n boost accumulated per distinct anchor, on the host: each plane
+    None when the boost function does not use it."""
+
+    anchors: np.ndarray  # [U] int64, ascending
+    factor: Optional[np.ndarray]  # [U] f32 product of the factors (Log10 / Log2 / Multiply)
+    add: Optional[np.ndarray]  # [U] f32 sum of value + param (Add)
+    replace: Optional[np.ndarray]  # [U] f32 last value + param (Replace), NaN = none
+    expr_add: Optional[np.ndarray]  # [U] f32 sum of the expression's values
+
+
+def anchor_boost_accs(n: int, anchors, boost_vals, boost_part) -> AnchorBoost:
+    """Per distinct anchor below ``n``, the 1:n boost's accumulations in list
+    order (``anchor_boost_accs``, ``:382``, and the scatters of
+    ``apply_anchor_boost_values_device``, ``:208-255``): products of the
+    factors, sums of the added values, the last replacement, and sums of the
+    expression's values, each in f32."""
+    anchors = np.asarray(anchors, dtype=np.int64)
+    keep = anchors < n
+    anchors = anchors[keep]
+    boost_vals = np.asarray(boost_vals, dtype=_F32)[keep]
+    b = boost_vals + _F32(boost_part.param or 0.0)
+    u, inv = np.unique(anchors, return_inverse=True)
+    fun = boost_part.boost_fun
+    factor = add = replace = expr_add = None
+    with np.errstate(divide="ignore", invalid="ignore"):
+        if fun in ("Log10", "Log2", "Multiply"):
+            if fun == "Log10":
+                factors = np.log10(b, dtype=_F32)
+            elif fun == "Log2":
+                factors = np.log2(b, dtype=_F32)
+            else:
+                factors = b
+            factor = np.ones(len(u), dtype=_F32)
+            np.multiply.at(factor, inv, factors)
+        elif fun == "Add":
+            add = np.zeros(len(u), dtype=_F32)
+            np.add.at(add, inv, b)
+        elif fun == "Replace":
+            replace = np.full(len(u), np.nan, dtype=_F32)
+            last = len(anchors) - 1 - np.unique(anchors[::-1], return_index=True)[1]
+            replace[:] = b[last]
+    if boost_part.expression:
+        expr = ScoreExpression(boost_part.expression)
+        adds = expr_vec(expr, torch.from_numpy(boost_vals)).numpy()
+        expr_add = np.zeros(len(u), dtype=_F32)
+        np.add.at(expr_add, inv, adds)
+    return AnchorBoost(u, factor, add, replace, expr_add)
+
+
+def apply_anchor_boost_values_device(dense: torch.Tensor, anchors, boost_vals, boost_part) -> torch.Tensor:
+    """A 1:n boost's ``(anchor, value)`` lists over the dense plane
+    (``apply_anchor_boost_values_device``, ``:208``): accumulated per anchor
+    on the host (:func:`anchor_boost_accs`), uploaded once and applied at
+    their anchors with a gather; at hits only, the factor, then the sum, the
+    replacement, the expression's sum, in that order, each rounded apart.
+    Then every hit floors at 1e-30; empty lists leave the plane as it is."""
+    if not len(anchors):
+        return dense
+    dev = dense.device
+    acc = anchor_boost_accs(dense.shape[0], anchors, boost_vals, boost_part)
+    out = torch.where(dense > 0, torch.clamp(dense, min=_HIT_EPS), dense)
+    if not len(acc.anchors):
+        return out
+    a = torch.from_numpy(acc.anchors).to(dev)
+    cur = dense[a]
+    hit = cur > 0
+    val = cur
+    if acc.factor is not None:
+        val = torch.where(hit, val * torch.from_numpy(acc.factor).to(dev), val)
+    if acc.add is not None:
+        val = torch.where(hit, val + torch.from_numpy(acc.add).to(dev), val)
+    if acc.replace is not None:
+        repl = torch.from_numpy(acc.replace).to(dev)
+        val = torch.where(hit & ~torch.isnan(repl), repl, val)
+    if acc.expr_add is not None:
+        val = torch.where(hit, val + torch.from_numpy(acc.expr_add).to(dev), val)
+    out[a] = torch.where(hit, torch.clamp(val, min=_HIT_EPS), val)
+    return out
+
+
+def scatter_factor_device(dense: torch.Tensor, anchors, factor: float) -> torch.Tensor:
+    """The plane times ``factor`` once for each time an anchor below
+    ``num_docs`` appears in ``anchors`` (``scatter_factor_device``,
+    ``:258``); the product per distinct anchor is taken on the host, in
+    f32, one multiply at a time."""
+    anchors = np.asarray(anchors, dtype=np.int64)
+    u, inv = np.unique(anchors[anchors < dense.shape[0]], return_inverse=True)
+    if not len(u):
+        return dense
+    prod = np.ones(len(u), dtype=_F32)
+    np.multiply.at(prod, inv, _F32(factor))
+    a = torch.from_numpy(u).to(dense.device)
+    out = dense.clone()
+    out[a] = dense[a] * torch.from_numpy(prod).to(dense.device)
+    return out

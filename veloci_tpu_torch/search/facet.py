@@ -1,8 +1,8 @@
-"""Facet counts of the batched tree route.
+"""Facet counts of the batched tree route and of the per-request executor.
 
-Counterpart of the batched facet path of ``veloci_tpu/search/facet.py``:
-the relation choice and gates of ``facet_matrix_host`` (``:81-130``),
-``_pairs_of`` (``:178``) and ``format_counts`` (``:161``); reference
+Counterpart of ``veloci_tpu/search/facet.py``: the relation choice and gates
+of ``facet_matrix_host`` (``:81-130``), ``_pairs_of`` (``:178``),
+``format_counts`` (``:161``) and ``get_facet`` (``:188-229``); reference
 src/facet.rs. The reference multiplies the hits ``[Q, num_docs]`` by a
 dense bf16 relation matrix ``[num_docs, G]``. Here the relation is uploaded
 once as a doc -> value CSR and each query's hit anchors gather their value
@@ -12,7 +12,9 @@ runs, counted exactly in integers by one ``bincount`` over
 The gates stay the reference's, so that a field routes the same way in
 both packages: a relation with more than ``FACET_MAX_TARGETS`` values, a
 dense matrix over ``FACET_MAX_BYTES``, or more than 256 pairs in one (doc,
-value) cell is not counted here.
+value) cell is not counted on the batched route. The executor
+(:func:`get_facet`) counts any fast relation with the same CSR and no gate,
+and joins the other fields on the host, as the reference does.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from ..create import ANCHOR_TO_TEXT_ID, PARENT_TO_VALUE_ID
 from ..indices import EMPTY, Direct
 from ..utils import get_steps_to_anchor
 
-__all__ = ["FacetRelation", "facet_relation", "facet_counts", "format_counts"]
+__all__ = ["FacetRelation", "facet_relation", "facet_counts", "format_counts", "get_facet"]
 
 FACET_MAX_TARGETS = 512
 FACET_MAX_BYTES = 128 * 1024 * 1024
@@ -63,11 +65,11 @@ def _relation_store(index, field: str):
     return index.key_value_stores.get(path)
 
 
-def facet_relation(index, field: str) -> Optional[FacetRelation]:
-    """The field's relation on the device, uploaded once, or None where the
-    reference's batched route would not count it (no fast-path relation,
-    or a gate fails)."""
-    key = ("facet", field)
+def facet_relation(index, field: str, gated: bool = True) -> Optional[FacetRelation]:
+    """The field's relation on the device, uploaded once, or None: with no
+    fast-path relation, or, when ``gated``, where the reference's batched
+    route would not count it (a gate fails)."""
+    key = ("facet", field, gated)
     if key in index.cache:
         return index.cache[key]
     rel = None
@@ -78,11 +80,11 @@ def facet_relation(index, field: str) -> Optional[FacetRelation]:
         keep = sources < num_docs
         sources, targets = sources[keep], targets[keep]
         num_targets = int(targets.max()) + 1 if len(targets) else 1
-        cells = np.unique(sources * num_targets + targets, return_counts=True)[1]
-        if (
+        if not gated or (
             num_targets <= FACET_MAX_TARGETS
             and num_docs * num_targets * 2 <= FACET_MAX_BYTES
-            and int(cells.max(initial=0)) <= _MAX_CELL_PAIRS
+            and int(np.unique(sources * num_targets + targets, return_counts=True)[1].max(initial=0))
+            <= _MAX_CELL_PAIRS
         ):
             order = np.argsort(sources, kind="stable")
             offsets = np.zeros(num_docs + 1, dtype=np.int64)
@@ -122,3 +124,28 @@ def format_counts(index, field: str, counts: np.ndarray, top) -> List[Tuple[str,
         order = order[:top]
     dictionary = index.get_dictionary(get_steps_to_anchor(field)[-1])
     return [(dictionary.terms[int(value_ids[i])], int(vals[i])) for i in order]
+
+
+def get_facet(index, facet_req, dense: torch.Tensor) -> List[Tuple[str, int]]:
+    """The facet list of the hit set ``dense > 0`` of a dense plane
+    (``get_facet``, ``:188``): the fast relation (the root field's
+    ``.parent_to_value_id``, or a 1:n field's ``.anchor_to_text_id``)
+    counted on the device over the hits, exactly and with no gate; other
+    fields through the join chain ``anchor -> ... -> value`` on the host,
+    from the hit ids."""
+    steps = get_steps_to_anchor(facet_req.field)
+    hits = torch.nonzero(dense > 0).squeeze(1)
+    if len(steps) == 1 or index.has_index(steps[-1] + ANCHOR_TO_TEXT_ID):
+        rel = facet_relation(index, facet_req.field, gated=False)
+        if rel is None:
+            return []
+        counts = facet_counts(rel, torch.zeros_like(hits), hits, 1)[0].cpu().numpy()
+    else:
+        ids = hits.cpu().numpy()
+        for step in steps:
+            store = index.key_value_stores.get(step + PARENT_TO_VALUE_ID)
+            if store is None:
+                return []
+            ids = store.get_values_multi(ids).astype(np.int64)
+        counts = np.bincount(ids) if len(ids) else np.zeros(0, np.int64)
+    return format_counts(index, facet_req.field, counts, facet_req.top)
