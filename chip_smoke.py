@@ -54,23 +54,40 @@ Phases (any failure is an exception and a non-zero exit):
              ``generic`` mix's first batch with ``dense_only``: filters,
              the Log10 boost, facets and phrase boosts on the dense
              executor). It must launch the dense resolve (B7) and the
-             single-query banded sweep (B2), and every answer is checked
+             fused lone-request select (B2), and every answer is checked
              against the CPU plain path. The executor keeps no memo of
              field searches, so requests are not answered from a cache
              (filter masks and boost factors are cached per index, as on
              the batched route).
-5. dense   -- kernel B7 (``csrc/dense_resolve.cu``) against its plain
-             version on the card, bit-equal, at the main path's largest
-             multi-term leaf (its recorded inputs) and on a synthetic
-             6,000,000-document plane with 2^23 gathered rows; ms of the
-             kernel, its plain version and one ``scatter_reduce_`` "amax"
-             over the gathered rows, beside the bound: 8 bytes a gathered
-             row read and 4 a document written, over 3.35 TB/s.
-6. profile -- one batch of each mix (32 lone requests of each executor
+5. dense   -- kernel B7 (``csrc/dense_resolve.cu``), its direct path and
+             its keys path, each against its plain version on the card,
+             bit-equal, at the main path's largest multi-term leaf (its
+             recorded inputs) and on a synthetic 6,000,000-document plane
+             with 2^23 gathered rows; per path the call's ms (CUDA events)
+             and, in phase 7, its device time and the scatter kernel's
+             alone (profiler events); ms of the plain version and of one
+             ``scatter_reduce_`` "amax" over the gathered rows, beside the
+             bound: 8 bytes a gathered row read and 4 a document written,
+             over 3.35 TB/s; and the leaf resolve from host arrays
+             (``resolve_to_anchor_dense``, its one upload included).
+6. select  -- the fused lone-request select (B2, ``levenshtein_select_banded``)
+             against its plain twin on the card, equal, on every fuzzy spec
+             the lone ``~2`` and executor mixes sent it, and at title x 1
+             for every distance up to bands 2 and 4; at title x 1, band 2,
+             d 2: the whole single-item ``_select`` call, fused and by the
+             sweep path it replaced (the single-query sweep,
+             ``select_matches`` and four readbacks), host clock, in turns; the fused kernel alone
+             (profiler events, in phase 7), its plain twin, and its bound: 64 + 4
+             bytes a term read and 12 a match written, 3 operations a band
+             cell for the terms that pass the length test.
+7. profile -- every profiler measurement, after every timing above (once
+             the profiler has run, launches in the process take longer):
+             B7's and the fused select's device times; one batch of each
+             mix (32 lone requests of each executor
              mix) under torch.profiler: the device's busy share of the
              wall time and its largest kernels; and the single-query banded
-             launch (B2) timed by its kernel's own device events, beside its
-             CUDA-event time.
+             launch (B2's old entry) timed by its kernel's own device
+             events, beside its CUDA-event time.
 """
 
 from __future__ import annotations
@@ -323,6 +340,18 @@ def time_ms(fn, warmup: int = 2, iters: int = 5, reps: int = 5) -> float:
     return statistics.median(samples)
 
 
+def wall_ms(fn, warmup: int = 3, iters: int = 60) -> float:
+    """Median host-clock ms of a call that ends in a readback (a sync)."""
+    for _ in range(warmup):
+        fn()
+    samples = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
 def sweep_bound(chars_t, lens, queries, qlens, band):
     """(ms, "bytes" | "operations"): the least time the card could take for
     one sweep on these inputs. Bytes: each input read once (64 + 4 bytes a
@@ -507,11 +536,14 @@ def record_dense_leaves(executor, calls):
     return real
 
 
-def synthetic_dense_inputs():
+def synthetic_dense_leaf(postings):
     """DENSE_SYNTH_TERMS runs of DENSE_SYNTH_ROWS rows in all over
     DENSE_SYNTH_DOCS documents, each run's anchors ascending and spread over
-    the plane (one row an anchor in a run, runs overlapping at random), on
-    the card: dense_resolve's arguments."""
+    the plane (one row an anchor in a run, runs overlapping at random), as
+    an index on the card with one field "s" of DENSE_SYNTH_TERMS keys:
+    ``(index, field, term ids, term scores)``, the leaf resolve's inputs."""
+    from types import SimpleNamespace
+
     srng = np.random.default_rng(8)
     run = DENSE_SYNTH_ROWS // DENSE_SYNTH_TERMS
     stride = DENSE_SYNTH_DOCS // run
@@ -521,12 +553,12 @@ def synthetic_dense_inputs():
     packed = np.stack([anchors.astype(np.int32), scores01.view(np.int32)], axis=1)
     offsets = np.arange(DENSE_SYNTH_TERMS + 2, dtype=np.int64) * run
     offsets[-1] = offsets[-2]
-    row_starts = np.arange(DENSE_SYNTH_TERMS + 1, dtype=np.int64) * run
     term_scores = (srng.integers(100, 1000, DENSE_SYNTH_TERMS) / np.float32(100.0)).astype(np.float32)
-    return (torch.from_numpy(offsets).cuda(), torch.from_numpy(packed).cuda(),
-            torch.arange(DENSE_SYNTH_TERMS, dtype=torch.int32, device="cuda"),
-            torch.from_numpy(term_scores).cuda(), torch.from_numpy(row_starts).cuda(),
-            DENSE_SYNTH_ROWS, DENSE_SYNTH_DOCS)
+    index = SimpleNamespace(
+        key_base={"s": (0, DENSE_SYNTH_TERMS)}, host_offsets=offsets, num_docs=DENSE_SYNTH_DOCS,
+        offsets=torch.from_numpy(offsets).cuda(), packed=torch.from_numpy(packed).cuda(),
+        device=torch.device("cuda"), max_row_score=postings.dense_max_row_score(scores01))
+    return index, "s", np.arange(DENSE_SYNTH_TERMS), term_scores
 
 
 def dense_bound(args):
@@ -538,43 +570,189 @@ def dense_bound(args):
 
 
 def dense_phase(postings, search_step, shapes, report):
-    """Kernel B7 against its plain version on each shape, bit-equal; ms of
-    the kernel, the plain version and one scatter_reduce_ "amax" over the
-    already gathered rows (the library call), beside the bound."""
-    rows = {}
-    for name, args in shapes.items():
-        got, want = postings.dense_resolve(*args), postings.dense_resolve_plain(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(f"dense_resolve kernel != plain on {name}")
-        err = float((got - want).abs().max()) if got.numel() else 0.0
-        offsets, packed, tids, tsc, row_starts, total_rows, num_docs = args
+    """Kernel B7, its direct and its keys path, against its plain version on
+    each shape, bit-equal; per path the call's ms (CUDA events); ms of the
+    plain version, one scatter_reduce_ "amax" over the already gathered rows
+    (the library call) and the leaf resolve from host arrays, beside the
+    bound. ``shapes``: name -> (index, field, term ids, term scores).
+    Returns the rows and each shape's arguments, for dense_device_phase."""
+    rows, shape_args = {}, {}
+    for name, (index, field, tids, tscores) in shapes.items():
+        *args, direct_ok = postings.dense_resolve_args(index, field, tids, tscores)
+        if not direct_ok:
+            raise AssertionError(f"the direct path's condition does not hold on {name}")
+        want = postings.dense_resolve_plain(*args)
+        errs = []
+        for path, direct in (("direct", True), ("keys", False)):
+            got = postings.dense_resolve(*args, direct)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"dense_resolve {path} path != plain on {name}")
+            errs.append(float((got - want).abs().max()))
+        # the calls' times in turns (direct, keys, keys, direct): the call is
+        # set by its host path, whose time drifts
+        turns = [time_ms(lambda direct=direct: postings.dense_resolve(*args, direct), iters=50)
+                 for direct in (True, False, False, True)]
+        paths = {"direct": dict(call_ms=(turns[0] + turns[3]) / 2),
+                 "keys": dict(call_ms=(turns[1] + turns[2]) / 2)}
+        offsets, packed, d_tids, tsc, row_starts, total_rows, num_docs = args
         counts = (row_starts[1:] - row_starts[:-1]).cpu().numpy()
-        _t, anchors, scores = search_step.gather_runs(offsets, packed, tids.to(torch.int64), tsc, counts)
+        _t, anchors, scores = search_step.gather_runs(offsets, packed, d_tids.to(torch.int64), tsc, counts)
 
         def library():
             return torch.full((num_docs,), float("-inf"), device="cuda").scatter_reduce_(
                 0, anchors, scores, "amax")
 
-        k_ms = time_ms(lambda: postings.dense_resolve(*args), iters=10)
+        leaf_ms = time_ms(lambda: postings.resolve_to_anchor_dense(index, field, tids, tscores), iters=50)
         p_ms = time_ms(lambda: postings.dense_resolve_plain(*args), warmup=1, iters=3, reps=5)
         l_ms = time_ms(library, iters=10)
         bound_ms, bound_by = dense_bound(args)
-        row = dict(shape=name, terms=int(tids.shape[0]), rows=int(total_rows), docs=int(num_docs),
-                   hits=int((got > 0).sum()), equal=True, max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
+        row = dict(shape=name, terms=int(d_tids.shape[0]), rows=int(total_rows), docs=int(num_docs),
+                   hits=int((want > 0).sum()), equal=True, max_abs_err=max(errs), paths=paths,
+                   direct_keys_keys_direct_ms=turns,
+                   kernel_ms=paths["direct"]["call_ms"], leaf_resolve_ms=leaf_ms, plain_ms=p_ms,
                    library_ms=l_ms, bound_ms=bound_ms, bound_by=bound_by)
-        rows[name] = row
+        rows[name], shape_args[name] = row, args
         log(f"kernel dense_resolve {name}: T={row['terms']}, rows={total_rows}, docs={num_docs}, "
-            f"hits={row['hits']}: equal, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, scatter_reduce_ "
-            f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"hits={row['hits']}: both paths equal to plain; "
+            + "; ".join(f"{path} call {v['call_ms']:.4f} ms" for path, v in paths.items())
+            + f"; leaf resolve with its upload {leaf_ms:.4f} ms, plain {p_ms:.4f} ms, scatter_reduce_ "
+            f"{l_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     report["dense_rows"] = list(rows.values())
-    return rows
+    return rows, shape_args
 
 
-def kernel_only_ms(fn, kernel: str, calls: int = 20) -> float:
-    """Mean device time of ``kernel``'s own events per call of ``fn`` under
-    torch.profiler: the kernel alone, without the host launch path a CUDA
-    event pair around the call also holds. NaN if the profiler saw none."""
+def dense_device_phase(postings, rows, shape_args):
+    """Per shape and path of B7, the call's device time and the scatter
+    kernel's alone (profiler events), into ``rows``. It runs after every
+    CUDA-event timing: once the profiler has run, launches in the process
+    take longer."""
+    for name, args in shape_args.items():
+        for path, direct in (("direct", True), ("keys", False)):
+            dev = device_ms(lambda direct=direct: postings.dense_resolve(*args, direct))
+            rows[name]["paths"][path].update(
+                device_ms=sum(dev.values()),
+                kernel_ms=sum(ms for key, ms in dev.items() if "scatter_max_kernel" in key),
+                device_events={key[:70]: ms for key, ms in dev.items()})
+        log(f"kernel dense_resolve {name}, device time by profiler events: "
+            + "; ".join(f"{path} {v['device_ms']:.4f} ms (scatter kernel {v['kernel_ms']:.4f})"
+                        for path, v in rows[name]["paths"].items()))
+
+
+def record_select_calls(field_search, index, calls):
+    """Route the field search's fused-select calls through a recorder that
+    keeps each call's inputs and calls the kernel's wrapper."""
+    real = field_search.levenshtein_select_banded
+    names = {fs.chars_t.data_ptr(): f for f, fs in index.fields.items()}
+
+    def recording(chars_t, lens, sweep_ids, query, query_len, band, distance):
+        calls.append((names.get(chars_t.data_ptr(), "?"), chars_t, lens, sweep_ids, np.array(query),
+                      int(query_len), band, distance))
+        return real(chars_t, lens, sweep_ids, query, query_len, band, distance)
+
+    field_search.levenshtein_select_banded = recording
+    return real
+
+
+def select_bound(lens, qlen, band, distance, matches):
+    """(ms, "bytes" | "operations", passing terms) of one fused select: what
+    the function needs, 4 bytes read a term (its length decides a term
+    that fails the test |len - qlen| <= d), 64 more a term that passes
+    (its chars), 4 read (its term id) and 12 written a match, and the
+    count; 3 operations a band cell for the passing terms."""
+    q = min(qlen, 32)
+    passing = int(((lens > 0) & ((lens - q).abs() <= distance)).sum())
+    moved = 4 * lens.shape[0] + 64 * passing + 16 * matches + 4
+    ops = BAND_CELL_OPS * (2 * band + 1) * q * passing
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes", passing
+
+
+def sweep_select(sweep, levenshtein, fs, item):
+    """The single-item select the fused one replaced: the single-query banded sweep (three [N]
+    outputs), select_matches over them, four readbacks."""
+    lower_term, distance, _sw = item
+    query, qlen = levenshtein.encode_query(lower_term)
+    dev = fs.chars_t.device
+    q_t = torch.from_numpy(query[None]).to(dev)
+    ql_t = torch.from_numpy(np.array([qlen], dtype=np.int32)).to(dev)
+    band = 2 if distance <= 2 else 4
+    dist, _pd, ispref = (o[None] for o in sweep.levenshtein_sweep_banded(
+        fs.chars_t, fs.lengths, q_t[0], ql_t, band=band))
+    distances = torch.tensor([distance], dtype=torch.int32, device=dev)
+    _rows, ids, dists, prefs = (t.cpu().numpy() for t in levenshtein.select_matches(
+        dist, ispref, dist, distances, remap=fs.sweep_ids))
+    return ids, dists, prefs
+
+
+def select_phase(sweep, levenshtein, field_search, calls, title, title_words, rng, report):
+    """The fused select against its plain twin on every recorded main-path
+    spec and at title x 1 for every distance up to bands 2 and 4; then, at
+    title x 1, band 2, d 2 on the lone ~2 mix's first query, the times (see
+    the module's note). Returns the kernels line's numbers."""
+    errs = [0]  # the largest |got - want| of every comparison that passed
+
+    def equal(got, want):
+        if not all(g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(got, want)):
+            return False
+        errs.extend(int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max(initial=0)) for g, w in zip(got, want))
+        return True
+
+    specs = {}
+    for call in calls:
+        field, chars_t, lens, ids, query, qlen, band, distance = call
+        specs.setdefault((field, query.tobytes(), qlen, band, distance), call)
+    for field, chars_t, lens, ids, query, qlen, band, distance in specs.values():
+        got = sweep.levenshtein_select_banded(chars_t, lens, ids, query, qlen, band, distance)
+        want = sweep.levenshtein_select_banded_plain(chars_t, lens, ids, query, qlen, band, distance)
+        if not equal(got, want):
+            raise AssertionError(f"fused select != plain on a main-path spec: {field}, {query[:qlen]}, "
+                                 f"band {band}, d {distance}")
+    log(f"select: {len(calls)} main-path calls, {len(specs)} distinct specs: equal to the plain twin")
+    words = [mutate(str(w), int(rng.integers(3)), rng) for w in rng.choice(title_words, size=8)]
+    for word in words:
+        query, qlen = levenshtein.encode_query(word)
+        for band in (2, 4):
+            for distance in range(band + 1):
+                args = (title.chars_t, title.lengths, title.sweep_ids, query, qlen, band, distance)
+                if not equal(sweep.levenshtein_select_banded(*args),
+                             sweep.levenshtein_select_banded_plain(*args)):
+                    raise AssertionError(f"fused select != plain at title x 1: {word}, band {band}, d {distance}")
+    log(f"select at title x 1: {len(words)} queries x every distance of bands 2 and 4: equal")
+
+    # the timed query: the lone ~2 mix's first title spec
+    first = next(c for c in calls if c[1] is title.chars_t and c[7] == 2)
+    word = "".join(chr(c) for c in first[4][: first[5]])
+    item = (word, 2, False)
+    query, qlen = levenshtein.encode_query(word)
+    args = (title.chars_t, title.lengths, title.sweep_ids, query, qlen, 2, 2)
+    got = field_search._select(title, [item])[0]
+    if not equal(got, sweep_select(sweep, levenshtein, title, item)):
+        raise AssertionError("the fused select != the sweep path at title x 1")
+    turns = []
+    for fn in ("sweep", "fused", "fused", "sweep"):
+        if fn == "sweep":
+            turns.append(wall_ms(lambda: sweep_select(sweep, levenshtein, title, item)))
+        else:
+            turns.append(wall_ms(lambda: field_search._select(title, [item])))
+    call_ms = wall_ms(lambda: sweep.levenshtein_select_banded(*args))
+    p_ms = wall_ms(lambda: sweep.levenshtein_select_banded_plain(*args), warmup=1, iters=5)
+    bound_ms, bound_by, passing = select_bound(title.lengths, qlen, 2, 2, len(got[0]))
+    row = dict(word=word, qlen=qlen, band=2, distance=2, matches=len(got[0]), passing_terms=passing,
+               terms=int(title.chars_t.shape[1]), select_sweep_fused_fused_sweep_ms=turns,
+               call_ms=call_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max(errs))
+    report["select"] = dict(main_path_calls=len(calls), distinct_specs=len(specs), title=row)
+    log(f"select at title x 1, band 2, d 2 ({qlen} chars, {row['matches']} matches, {passing} of "
+        f"{row['terms']} terms pass the length test): single-item _select, sweep / fused / fused / sweep "
+        f"{' / '.join(f'{t:.4f}' for t in turns)} ms; fused call {call_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return row, args
+
+
+def device_ms(fn, calls: int = 20) -> dict:
+    """Device time per call of ``fn`` under torch.profiler, by event name
+    (kernels, memsets, copies): what the card spent, without the host
+    launch path a CUDA event pair around the call also holds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -584,11 +762,15 @@ def kernel_only_ms(fn, kernel: str, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if getattr(e, "device_type", None) == DeviceType.CUDA and kernel in e.key
-    )
-    return total_us / 1e3 / calls if total_us else float("nan")
+    return {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total}
+
+
+def kernel_only_ms(fn, kernel: str, calls: int = 20) -> float:
+    """Mean device time of ``kernel``'s own events per call of ``fn``: the
+    kernel alone. NaN if the profiler saw none."""
+    total = sum(ms for key, ms in device_ms(fn, calls).items() if kernel in key)
+    return total if total else float("nan")
 
 
 def profile_phase(profiled, report):
@@ -839,7 +1021,7 @@ def main() -> None:
     kernel_fns = {
         name: getattr(levenshtein_sweep, name)
         for name in ("levenshtein_sweep_banded_batch", "levenshtein_sweep_banded",
-                     "levenshtein_sweep_full_batch")
+                     "levenshtein_select_banded", "levenshtein_sweep_full_batch")
     }
     kernel_fns["dense_resolve"] = postings.dense_resolve
     requests_of = dict(mixes, single_fuzzy_d2=[[d] for d in singles])
@@ -848,12 +1030,12 @@ def main() -> None:
     # requests, then the query-string trees
     paths = (
         ("single_leaf", ("exact", "fuzzy_d1", "fuzzy_d2", "single_fuzzy_d2"),
-         ("levenshtein_sweep_banded_batch", "levenshtein_sweep_banded")),
+         ("levenshtein_sweep_banded_batch", "levenshtein_select_banded")),
         ("query_trees", ("query_string", "and_of_ors_fuzzy"),
          ("levenshtein_sweep_banded_batch", "levenshtein_sweep_full_batch")),
         ("generic", ("generic",),
          ("levenshtein_sweep_banded_batch", "levenshtein_sweep_full_batch")),
-        ("executor", tuple(ex_mixes), ("dense_resolve", "levenshtein_sweep_banded")),
+        ("executor", tuple(ex_mixes), ("dense_resolve", "levenshtein_select_banded")),
     )
     answers = {}
     lat = {}
@@ -862,10 +1044,12 @@ def main() -> None:
     path_routes = {}
     full_calls = []  # the query_string mix's full-width launches
     dense_calls = []  # the multi_term mix's leaves
+    select_calls = []  # the fused selects of the lone ~2 and executor mixes
     gc.callbacks.append(on_gc)
     for path, names, needed in paths:
         for fn in kernel_fns.values():
             fn.launches = 0
+        postings.dense_resolve.direct_launches = 0
         routes0 = dict(index.path_counts)
         for name in names:
             lat[name], answers[name], rows_per_batch[name] = [], [], []
@@ -873,6 +1057,8 @@ def main() -> None:
                 real_full = record_full_launches(field_search, index, full_calls)
             if name == "multi_term":
                 real_dense = record_dense_leaves(executor, dense_calls)
+            if name == "single_fuzzy_d2" or name in DENSE_ONLY:
+                real_select = record_select_calls(field_search, index, select_calls)
             for batch in requests_of[name]:
                 reqs = [make(d, index) for d in batch]
                 rows0 = sum(index.gathered_rows.values())
@@ -885,8 +1071,11 @@ def main() -> None:
                 field_search.levenshtein_sweep_full_batch = real_full
             if name == "multi_term":
                 executor.resolve_to_anchor_dense = real_dense
+            if name == "single_fuzzy_d2" or name in DENSE_ONLY:
+                field_search.levenshtein_select_banded = real_select
         torch.cuda.synchronize()
         path_launches[path] = {name: fn.launches for name, fn in kernel_fns.items()}
+        path_launches[path]["dense_resolve_direct"] = postings.dense_resolve.direct_launches
         path_routes[path] = {k: v - routes0.get(k, 0) for k, v in index.path_counts.items()
                              if v != routes0.get(k, 0)}
         log(f"main path {path} launches: {path_launches[path]}; routes: {path_routes[path]}")
@@ -899,7 +1088,8 @@ def main() -> None:
     gen = path_launches["generic"]
     log(f"generic mix launches: B1 (banded, batch) {gen['levenshtein_sweep_banded_batch']}, "
         f"B3 (full-width) {gen['levenshtein_sweep_full_batch']}")
-    launches = {k: sum(p[k] for p in path_launches.values()) for k in kernel_fns}
+    launches = {k: sum(p[k] for p in path_launches.values())
+                for k in [*kernel_fns, "dense_resolve_direct"]}
     log(f"main path launches: {launches}; routes: {dict(index.path_counts)}")
     log(f"main path: {len(gc_full_ms)} full garbage collections, "
         f"ms each: {[round(t, 1) for t in gc_full_ms]}")
@@ -956,14 +1146,30 @@ def main() -> None:
             f"p99 {row['p99_ms']:.3f} ms, {row['qps']:.1f} QPS")
 
     # ---- kernel B7 at the main path's largest multi-term leaf and on a 6M-document plane
-    leaves = [postings.dense_resolve_args(index, *c) for c in dense_calls]
-    largest = max((a for a in leaves if a is not None), key=lambda a: a[5])
-    del dense_calls, leaves
-    dense_rows = dense_phase(postings, search_step, {
-        "title multi-term leaf": largest,
-        "synthetic 6M docs": synthetic_dense_inputs(),
+    def leaf_rows(call):
+        leaf = postings.dense_resolve_args(index, *call)
+        return -1 if leaf is None else leaf[5]
+
+    largest = max(dense_calls, key=leaf_rows)
+    del dense_calls
+    dense_rows, dense_args = dense_phase(postings, search_step, {
+        "title multi-term leaf": (index, *largest),
+        "synthetic 6M docs": synthetic_dense_leaf(postings),
     }, report)
     torch.cuda.empty_cache()
+
+    # ---- the fused select (B2) on the main path's specs and at title x 1
+    select_row, select_args = select_phase(levenshtein_sweep, levenshtein, field_search, select_calls,
+                                           title, title_words, rng, report)
+    del select_calls
+
+    # ---- profiler measurements, after every CUDA-event and host-clock timing
+    dense_device_phase(postings, dense_rows, dense_args)
+    del dense_args
+    select_row["kernel_ms"] = kernel_only_ms(
+        lambda: levenshtein_sweep.levenshtein_select_banded(*select_args), "banded_select_kernel")
+    log(f"select at title x 1, band 2, d 2: fused kernel alone (profiler device events) "
+        f"{select_row['kernel_ms']:.4f} ms")
 
     profiled = {name: ([make(d, index) for d in batches[1]], lambda reqs: vt.search_batch(reqs, index))
                 for name, batches in requests_of.items() if name not in DENSE_ONLY}
@@ -982,12 +1188,15 @@ def main() -> None:
         "banded_sweep_kernel",
     )
     report["b2_kernel_only_ms"] = b2_kernel_ms
-    log(f"B2 at title x 1, band 2: kernel alone (profiler device events) {b2_kernel_ms:.4f} ms, "
+    log(f"B2 (old single-query entry) at title x 1, band 2: kernel alone (profiler device events) "
+        f"{b2_kernel_ms:.4f} ms, "
         f"call (CUDA events) {kernel_times[('title', 1, 2)][0]:.4f} ms")
 
-    # B1 and B2 at the kernel phase's title shapes (band 2, Q 256 and 1); B3
-    # at the main path's most frequent full-width shape, on its own inputs.
-    # No single PyTorch call computes a Levenshtein sweep: library_ms is null.
+    # B1 and B2's old single-query entry at the kernel phase's title shapes
+    # (band 2, Q 256 and 1; the old entry is no longer on the main path);
+    # the fused select at title x 1, band 2, d 2; B3 at the main path's most
+    # frequent full-width shape, on its own inputs. No single PyTorch call
+    # computes a Levenshtein sweep: library_ms is null.
     b1, b2 = kernel_times[("title", 256, 2)], kernel_times[("title", 1, 2)]
     kernels = [
         {"name": "levenshtein_sweep_banded_batch", "route": "cuda",
@@ -1002,6 +1211,12 @@ def main() -> None:
          "launches": launches["levenshtein_sweep_banded"],
          "max_abs_err": kernel_err["single"], "ms": b2[0], "plain_ms": b2[1],
          "bound_ms": b2[2], "bound_by": b2[3], "library_ms": None},
+        {"name": "levenshtein_select_banded", "route": "cuda",
+         "source": "veloci_tpu_torch/csrc/banded_levenshtein.cu",
+         "replaces": "veloci_tpu/ops/pallas_levenshtein.py:412",
+         "launches": launches["levenshtein_select_banded"], "max_abs_err": select_row["max_abs_err"],
+         "ms": select_row["call_ms"], "plain_ms": select_row["plain_ms"],
+         "bound_ms": select_row["bound_ms"], "bound_by": select_row["bound_by"], "library_ms": None},
         {"name": "levenshtein_sweep_full_batch", "route": "cuda",
          "source": "veloci_tpu_torch/csrc/full_levenshtein.cu",
          "replaces": "veloci_tpu/ops/pallas_levenshtein.py:72",
@@ -1010,8 +1225,9 @@ def main() -> None:
          "plain_ms": main_full["plain_ms"], "bound_ms": main_full["bound_ms"],
          "bound_by": main_full["bound_by"], "library_ms": None},
     ]
-    # B7 at the main path's largest multi-term leaf; the library call is one
-    # scatter_reduce_ "amax" over the rows the plain version gathers
+    # B7 at the main path's largest multi-term leaf, its direct path (the
+    # main path's); the library call is one scatter_reduce_ "amax" over the
+    # rows the plain version gathers
     b7 = dense_rows["title multi-term leaf"]
     kernels.append(
         {"name": "dense_resolve", "route": "cuda", "source": "veloci_tpu_torch/csrc/dense_resolve.cu",

@@ -1,6 +1,6 @@
 """Port tests that need a CUDA device: the hand-written sweep kernels (banded
-and full-width) and the dense resolve against their plain PyTorch versions
-on the card, and the slice (``search_batch`` and ``search``) on the card
+and full-width, the fused lone-request select) and the dense resolve (both
+its paths) against their plain PyTorch versions on the card, and the slice (``search_batch`` and ``search``) on the card
 against the same index on the CPU. Tolerance: exact equality (integer
 outputs; the same f32 products, maxima order-free, and sums taken in the
 same order, on both devices).
@@ -10,6 +10,8 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import concurrent.futures
 
 import numpy as np
 import pytest
@@ -26,9 +28,17 @@ from veloci_tpu_torch import (
     search_batch,
     search_query,
 )
-from veloci_tpu_torch.ops.postings import dense_resolve, dense_resolve_plain
+from veloci_tpu_torch.ops.postings import (
+    dense_fast_path,
+    dense_max_row_score,
+    dense_resolve,
+    dense_resolve_args,
+    dense_resolve_plain,
+)
 from veloci_tpu_torch.ops.levenshtein import encode_query
 from veloci_tpu_torch.ops.levenshtein_sweep import (
+    levenshtein_select_banded,
+    levenshtein_select_banded_plain,
     levenshtein_sweep_banded,
     levenshtein_sweep_banded_batch,
     levenshtein_sweep_banded_batch_plain,
@@ -258,3 +268,171 @@ def test_executor_on_card_equals_cpu(card):
             assert a.num_hits == b.num_hits > 0 and a.facets == b.facets
             assert [(h.id, h.score) for h in a.data] == [(h.id, h.score) for h in b.data]
     assert on_card.path_counts["executor"] == len(reqs) + 3 and dense_resolve.launches > before
+
+
+def _card_csr(rng, card, num_keys, num_docs, scores01=None):
+    """A CSR of runs (20% empty, anchors up to num_docs + 50) on the card
+    and its host offsets; ``scores01`` the row scores, else seeded."""
+    counts = rng.integers(0, 3000, num_keys)
+    counts[rng.random(num_keys) < 0.2] = 0
+    offsets = np.zeros(num_keys + 2, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:-1])
+    offsets[-1] = offsets[-2]
+    anchors = np.concatenate([np.sort(rng.choice(num_docs + 50, size=c, replace=False)) for c in counts])
+    if scores01 is None:
+        scores01 = rng.integers(0, 60000, len(anchors)).astype(np.float32) / np.float32(100.0)
+    packed = np.stack([anchors.astype(np.int32), scores01[: len(anchors)].view(np.int32)], axis=1)
+    return offsets, torch.from_numpy(offsets).to(card), torch.from_numpy(packed).to(card), scores01
+
+
+def _leaf_args(rng, offsets, offsets_t, packed, t, num_docs, term_scores, card):
+    tids = rng.integers(0, len(offsets) - 2, t)
+    starts = np.zeros(t + 1, dtype=np.int64)
+    np.cumsum(offsets[tids + 1] - offsets[tids], out=starts[1:])
+    return (offsets_t, packed, torch.from_numpy(tids.astype(np.int32)).to(card),
+            torch.from_numpy(np.asarray(term_scores, np.float32)).to(card), torch.from_numpy(starts).to(card),
+            int(starts[-1]), num_docs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 3, 600, 1500])  # 1500 > the kernel's 1,024 staged terms
+def test_dense_resolve_both_paths_equal_plain_on_card(card, t):
+    """B7's direct path (where dense_fast_path holds) and its keys path,
+    on the same leaves: bit-equal to the plain version. Term scores of
+    +0.0 and subnormals (on leaves of three terms or more) ride the direct
+    path."""
+    rng = np.random.default_rng(30 + t)
+    num_docs = 50_000
+    offsets, offsets_t, packed, scores01 = _card_csr(rng, card, 4000, num_docs)
+    max_row = dense_max_row_score(scores01)
+    term_scores = (rng.integers(1, 400, t) / np.float32(37.0)).astype(np.float32)
+    if t >= 3:
+        term_scores[-2:] = [0.0, np.uint32(1).view(np.float32)]
+    assert dense_fast_path(max_row, term_scores)
+    args = _leaf_args(rng, offsets, offsets_t, packed, t, num_docs, term_scores, card)
+    want = dense_resolve_plain(*args)
+    for direct in (True, False):
+        before = dense_resolve.launches, dense_resolve.direct_launches
+        got = dense_resolve(*args, direct)
+        torch.cuda.synchronize()
+        assert (dense_resolve.launches, dense_resolve.direct_launches) == (before[0] + 1, before[1] + direct)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), direct
+    assert int((want > 0).sum()) > 0
+
+
+# leaves the direct path must refuse: (row scores of the index, term
+# scores). No case mixes +0.0 and -0.0 products, nor makes a NaN: the plain
+# maximum over those depends on the order of the rows.
+_POSITIVE = [0.01, 1.5, 600.0]
+KEYS_ONLY = {
+    "negative zero term": (_POSITIVE, [1.5, -0.0, 2.0]),
+    "negative term": (_POSITIVE, [1.5, -0.25, 2.0]),
+    "infinite terms": (_POSITIVE, [np.inf, -np.inf, 1.0]),
+    "overflowing product": ([3e38, 1.0], [2.0, 1.0, 0.5]),
+    "negative zero and negative rows": ([-0.0, -1.5, 2.0], [1.0, 2.0, 3.0]),
+    "infinite rows": ([np.inf, -np.inf, 2.0], [1.0, 2.0, 3.0]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(KEYS_ONLY))
+def test_dense_resolve_keys_path_on_leaves_the_direct_path_refuses(card, case):
+    rng = np.random.default_rng(len(case))
+    num_docs = 20_000
+    rows, terms = KEYS_ONLY[case]
+    scores01 = np.resize(np.asarray(rows, dtype=np.float32), 4000 * 3000)
+    rng.shuffle(scores01)
+    offsets, offsets_t, packed, scores01 = _card_csr(rng, card, 4000, num_docs, scores01)
+    term_scores = np.resize(np.asarray(terms, dtype=np.float32), 9)
+    assert not dense_fast_path(dense_max_row_score(scores01[: int(offsets[-1])]), term_scores)
+    args = _leaf_args(rng, offsets, offsets_t, packed, 9, num_docs, term_scores, card)
+    got, want = dense_resolve(*args), dense_resolve_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_leaf_resolve_on_card_takes_the_direct_path(card):
+    """A card index's leaves carry the direct path in their arguments; a
+    negative leaf boost turns it off; both planes equal the CPU index's."""
+    rng = np.random.default_rng(31)
+    vocab = [f"w{i:x}" for i in range(300)]
+    docs = "\n".join('{"title": "%s"}' % " ".join(rng.choice(vocab, size=6)) for _ in range(3000))
+    pers = Persistence.from_built(create_indices_from_str(docs, "{}"))
+    on_cpu, on_card = TorchIndex.from_persistence(pers, "cpu"), TorchIndex.from_persistence(pers, card)
+    assert on_card.max_row_score is not None and on_card.max_row_score == on_cpu.max_row_score
+    tids = np.arange(0, 60, 3)
+    for scores, direct in ((np.full(20, 1.25, np.float32), True), (np.full(20, -1.25, np.float32), False)):
+        args = dense_resolve_args(on_card, "title", tids, scores)
+        assert args[7] is direct
+        before = dense_resolve.direct_launches
+        got = dense_resolve(*args).cpu()
+        assert dense_resolve.direct_launches == before + direct
+        cpu_args = dense_resolve_args(on_cpu, "title", tids, scores)
+        assert cpu_args[7] is False
+        assert torch.equal(got.view(torch.int32), dense_resolve(*cpu_args).view(torch.int32))
+
+
+def _select_sweep(words, n, rng, card):
+    """A field sweep matrix on the card: ``words`` sorted by length, pad
+    rows (length 0, term id -1) behind them, a permutation as term ids."""
+    words = sorted(words, key=len)
+    chars = np.zeros((32, n), np.uint16)
+    lens = np.zeros(n, np.int32)
+    for i, w in enumerate(words):
+        chars[: len(w), i] = [ord(c) for c in w]
+        lens[i] = len(w)
+    ids = np.full(n, -1, np.int32)
+    ids[: len(words)] = rng.permutation(len(words)) + 5
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in (chars, lens, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [2, 4])
+def test_select_banded_equals_plain_on_card(card, band):
+    """The fused lone-request select against its plain twin, for every
+    distance up to the band: query lengths 1 and 31, a query with no
+    match, pad rows, and a field whose every real row matches (600 rows,
+    past the first readback's 256)."""
+    rng = np.random.default_rng(40 + band)
+    words = ([f"w{i:03d}" for i in range(300)] + ["a", "b", "ab", "hello", "help", "x" * 31, "x" * 32]
+             + ["".join(rng.choice(list("helowx"), size=int(k))) for k in rng.integers(1, 33, 3000)])
+    near = ["ab", "a", "b", "abc", "xab", "ac", "bb", "aab", "abb", "cb"]
+    fields = {"main": _select_sweep(words, 4096, rng, card), "all match": _select_sweep(near * 60, 1024, rng, card)}
+    cases = [("main", w) for w in ("a", "x" * 31, "helo", "w0015", "\u65e5\u672c" * 6)] + [("all match", "ab")]
+    for name, word in cases:
+        chars_t, lens, ids = fields[name]
+        query, qlen = encode_query(word)
+        for distance in range(band + 1):
+            before = levenshtein_select_banded.launches
+            got = levenshtein_select_banded(chars_t, lens, ids, query, qlen, band, distance)
+            assert levenshtein_select_banded.launches == before + 1
+            want = levenshtein_select_banded_plain(chars_t, lens, ids, query, qlen, band, distance)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and np.array_equal(g, w), (name, word, distance)
+            if name == "all match" and distance >= 1:
+                assert len(got[0]) == 600
+
+
+@pytest.mark.cuda
+def test_select_calls_apart_across_threads_and_fields_of_different_sizes(card):
+    """Each call writes its own output: threads selecting at once on fields
+    of three sizes, on one stream, each get their own field's matches,
+    equal to the plain twin, as the server's handler threads would."""
+    rng = np.random.default_rng(50)
+    fields = [_select_sweep(["".join(rng.choice(list("abcd"), size=int(k))) for k in rng.integers(1, 9, n)],
+                            n, rng, card) for n in (3000, 700, 9000)]
+    query, qlen = encode_query("abca")
+    wants = [levenshtein_select_banded_plain(*f, query, qlen, 2, 2) for f in fields]
+    assert len({len(w[0]) for w in wants}) == 3 and all(len(w[0]) for w in wants)
+
+    def worker(k):
+        bad = 0
+        for _ in range(50):
+            got = levenshtein_select_banded(*fields[k], query, qlen, 2, 2)
+            bad += not all(np.array_equal(g, w) for g, w in zip(got, wants[k]))
+        return bad
+
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+        assert list(pool.map(worker, [0, 1, 2, 0, 1, 2])) == [0] * 6
+

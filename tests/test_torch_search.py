@@ -30,6 +30,7 @@ from veloci_tpu_torch import Request as PortRequest
 from veloci_tpu_torch import SearchQueryGeneratorParameters, TorchIndex, load_index, search_batch
 from veloci_tpu_torch import search_query
 from veloci_tpu_torch.ops.levenshtein_sweep import (
+    levenshtein_select_banded,
     levenshtein_sweep_banded,
     levenshtein_sweep_banded_batch,
     levenshtein_sweep_full_batch,
@@ -254,7 +255,8 @@ def test_cases_cover_the_routes(built, batched):
 def test_sweep_entry_points_run_on_cpu(built):
     """On CPU tensors the wrappers take the plain version: no launch counted."""
     _pers, _ref, indexes = built
-    kernels = (levenshtein_sweep_banded_batch, levenshtein_sweep_banded, levenshtein_sweep_full_batch)
+    kernels = (levenshtein_sweep_banded_batch, levenshtein_sweep_banded, levenshtein_select_banded,
+               levenshtein_sweep_full_batch)
     before = [k.launches for k in kernels]
     search_batch([PortRequest.from_dict(CASES[n]) for n in ("fuzzy_2", "prefix_d1")], indexes["disk"])
     assert [k.launches for k in kernels] == before

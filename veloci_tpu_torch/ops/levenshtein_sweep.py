@@ -19,6 +19,12 @@ Counterpart of the three Pallas kernels in
   ``levenshtein_sweep_full_batch_bitparallel`` is the kernel's algorithm in
   torch, for the tests.
 
+``levenshtein_select_banded`` serves one query at one distance (a lone
+request's fuzzy leaf): the same banded DP in a kernel of the same source
+that writes only the matching rows, compacted, and reads them back in one
+copy, already the per-query match list of ``select_matches``; its plain
+twin is ``levenshtein_select_banded_plain``.
+
 Rows of length 0 give ``BIG`` and ``is_prefix`` false. Each kernel's source
 note says what bounds it. A tensor on the CPU takes the plain PyTorch
 version; a CUDA tensor launches the kernel or raises. Each wrapper counts
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -38,6 +45,8 @@ __all__ = [
     "levenshtein_sweep_banded_batch",
     "levenshtein_sweep_banded",
     "levenshtein_sweep_banded_batch_plain",
+    "levenshtein_select_banded",
+    "levenshtein_select_banded_plain",
     "levenshtein_sweep_full_batch",
     "levenshtein_sweep_full_batch_plain",
     "levenshtein_sweep_full_batch_bitparallel",
@@ -56,22 +65,35 @@ _TABLE = 256  # code points with a direct match-table entry in the full-width ke
 _IN = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
 _OUT = [ctypes.c_void_p] * 4
 SIGNATURES = {
-    BANDED: {"veloci_banded_sweep": [*_IN, ctypes.c_int, *_OUT]},
+    BANDED: {
+        "veloci_banded_sweep": [*_IN, ctypes.c_int, *_OUT],
+        # (chars_t, term_lens, sweep_ids, n, host query, query_len, band,
+        # limit, out, stream)
+        "veloci_banded_select": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+    },
     FULL: {"veloci_full_sweep": [*_IN, *_OUT]},
 }
+# the fused select reads back the count and this many matches in one copy;
+# a query with more takes a second copy for the rest
+_SELECT_HEAD = 256
 
 
 def _check(chars_t, term_lens, queries, query_lens, band) -> None:
     """``band`` 2 or 4 for the banded sweep, None for the full one."""
     if band not in (2, 4, None):
         raise ValueError(f"band must be 2 or 4, got {band}")
+    _check_tensors(chars_t, term_lens, ("queries", queries, torch.uint16, 2),
+                   ("query_lens", query_lens, torch.int32, 1))
+    if queries.shape[1] != L or query_lens.shape[0] != queries.shape[0]:
+        raise ValueError(f"queries must be [Q, {L}] with query_lens [Q]")
+
+
+def _check_tensors(chars_t, term_lens, *more) -> None:
+    """``chars_t [32, N] uint16`` and ``term_lens [N] int32``, and each of
+    ``more`` ``(name, tensor, dtype, ndim)``: on one device, contiguous."""
     dev = chars_t.device
-    expect = (
-        ("chars_t", chars_t, torch.uint16, 2),
-        ("term_lens", term_lens, torch.int32, 1),
-        ("queries", queries, torch.uint16, 2),
-        ("query_lens", query_lens, torch.int32, 1),
-    )
+    expect = (("chars_t", chars_t, torch.uint16, 2), ("term_lens", term_lens, torch.int32, 1), *more)
     for name, t, dtype, ndim in expect:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, chars_t on {dev}")
@@ -82,8 +104,6 @@ def _check(chars_t, term_lens, queries, query_lens, band) -> None:
     n = chars_t.shape[1]
     if chars_t.shape[0] != L or term_lens.shape[0] != n:
         raise ValueError(f"chars_t must be [{L}, N] with term_lens [N]")
-    if queries.shape[1] != L or query_lens.shape[0] != queries.shape[0]:
-        raise ValueError(f"queries must be [Q, {L}] with query_lens [Q]")
 
 
 def _u16_to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -343,3 +363,95 @@ def levenshtein_sweep_full_batch(chars_t, term_lens, queries, query_lens):
 
 
 levenshtein_sweep_full_batch.launches = 0
+
+
+def _check_select(chars_t, term_lens, sweep_ids, query, band, distance) -> None:
+    if band not in (2, 4) or not 0 <= distance <= band:
+        raise ValueError(f"band must be 2 or 4 and 0 <= distance <= band, got {band}, {distance}")
+    _check_tensors(chars_t, term_lens, ("sweep_ids", sweep_ids, torch.int32, 1))
+    if sweep_ids.shape != term_lens.shape:
+        raise ValueError("sweep_ids must be shaped like term_lens")
+    if query.shape != (L,):
+        raise ValueError(f"query must be [{L}], got {query.shape}")
+
+
+def _ordered(rows, term_ids, dists, prefixes):
+    """Host matches -> ``(term ids int64, distances int32, is_prefix
+    bool)`` in ``select_matches``' order: distance ascending, then row."""
+    order = np.lexsort((rows, dists))
+    return term_ids[order].astype(np.int64), dists[order].astype(np.int32), prefixes[order].astype(bool)
+
+
+def levenshtein_select_banded_plain(chars_t, term_lens, sweep_ids, query, query_len: int, band: int,
+                                    distance: int):
+    """Plain PyTorch version of :func:`levenshtein_select_banded`, on any
+    device: the banded sweep's plain version for the one query, then the
+    rows with distance ``<= distance``."""
+    query = np.asarray(query, dtype=np.uint16)
+    _check_select(chars_t, term_lens, sweep_ids, query, band, distance)
+    dev = chars_t.device
+    queries = torch.from_numpy(np.ascontiguousarray(query[None])).to(dev)
+    qlens = torch.tensor([query_len], dtype=torch.int32, device=dev)
+    dist, _prefix, is_prefix = levenshtein_sweep_banded_batch_plain(chars_t, term_lens, queries, qlens, band)
+    rows = torch.nonzero(dist[0] <= distance)[:, 0]
+    host = (t.cpu().numpy() for t in (rows, sweep_ids[rows], dist[0][rows], is_prefix[0][rows]))
+    return _ordered(*host)
+
+
+def levenshtein_select_banded(chars_t, term_lens, sweep_ids, query, query_len: int, band: int,
+                              distance: int):
+    """One query's matches in a field's sweep matrix: ``chars_t [32, N]
+    uint16``, ``term_lens [N] int32``, ``sweep_ids [N] int32`` (row -> term
+    id), ``query`` the host ``[32] uint16`` code points of
+    :func:`..levenshtein.encode_query` with ``query_len``, ``band`` 2 or 4
+    and ``distance <= band`` -> host ``(term ids int64, distances int32,
+    is_prefix bool)`` of every row whose banded distance is at most
+    ``distance``, by distance, then row: what ``select_matches`` gives for
+    the query from the banded sweep's outputs.
+
+    One kernel launch writes the count and only the matches into an int32
+    ``[1 + 3 N]`` buffer of this call's own (PyTorch's caching allocator
+    hands the memory back on the stream, so concurrent callers never share
+    it); one copy brings the count and the first matches back (a second
+    copy the rest, past ``_SELECT_HEAD``), and the host sorts them."""
+    query = np.ascontiguousarray(query, dtype=np.uint16)
+    _check_select(chars_t, term_lens, sweep_ids, query, band, distance)
+    dev = chars_t.device
+    if dev.type == "cpu":
+        return levenshtein_select_banded_plain(
+            chars_t, term_lens, sweep_ids, query, query_len, band, distance)
+    if dev.type != "cuda":
+        raise ValueError(f"no banded select for device {dev}")
+    n = chars_t.shape[1]
+    if n == 0:
+        return _ordered(*(np.empty(0, np.int32) for _ in range(4)))
+    out = torch.empty(1 + 3 * n, dtype=torch.int32, device=dev)
+    lib = _build.load(BANDED, SIGNATURES[BANDED])
+
+    def launch():
+        return lib.veloci_banded_select(
+            chars_t.data_ptr(), term_lens.data_ptr(), sweep_ids.data_ptr(), n, query.ctypes.data,
+            int(query_len), band, distance, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        err = launch()
+    else:
+        with torch.cuda.device(dev):
+            err = launch()
+    if err != 0:
+        msg = lib.veloci_cuda_error_string(err).decode()
+        raise RuntimeError(f"veloci_banded_select kernel launch failed: {msg} ({err})")
+    levenshtein_select_banded.launches += 1
+    head = min(n, _SELECT_HEAD)
+    host = out[: 1 + 3 * head].cpu().numpy()
+    count = int(host[0])
+    matches = host[1:]
+    if count > head:
+        matches = np.concatenate([matches, out[1 + 3 * head : 1 + 3 * count].cpu().numpy()])
+    m = matches[: 3 * count].reshape(count, 3)
+    return _ordered(m[:, 0], m[:, 1], m[:, 2] >> 1, (m[:, 2] & 1) == 1)
+
+
+levenshtein_select_banded.launches = 0
+

@@ -31,6 +31,7 @@ import torch
 from .create import TEXTINDEX, TO_ANCHOR_ID_SCORE, BuiltIndex
 from .error import FstNotFoundError, VelociError
 from .indices import AnchorScoreCsr, Csr, Direct, PhraseCsr, TermDictionary
+from .ops.postings import dense_max_row_score
 
 __all__ = [
     "FieldSweep", "LongTerms", "Persistence", "TorchIndex", "long_term_rows", "load_index",
@@ -300,8 +301,8 @@ class TorchIndex:
 
     def __init__(
         self, *, num_docs, all_fields, dictionaries, fields, long_terms, host_offsets, offsets,
-        packed, key_base, device, columns=None, key_value_stores=None, boost_stores=None,
-        phrase_indices=None,
+        packed, key_base, device, max_row_score=None, columns=None, key_value_stores=None,
+        boost_stores=None, phrase_indices=None,
     ) -> None:
         self.device = device
         self.num_docs = int(num_docs)
@@ -312,6 +313,9 @@ class TorchIndex:
         self.host_offsets = host_offsets  # [num_keys + 2] int64, host
         self.offsets = offsets  # the same, on the device
         self.packed = packed  # [nnz, 2] int32 (anchor, f32 bits of score/100)
+        # the largest row score when every one is a finite float with its
+        # sign bit clear, else None (ops.postings.dense_max_row_score)
+        self.max_row_score = max_row_score
         self.key_base = key_base  # field -> (base, num_keys)
         self.columns: Dict[str, dict] = columns or {}
         self.key_value_stores: Dict[str, Csr | Direct] = key_value_stores or {}
@@ -394,7 +398,8 @@ class TorchIndex:
         return cls(
             num_docs=num_docs, all_fields=all_fields, dictionaries=dictionaries, fields=sweeps,
             long_terms=long_terms, host_offsets=host_offsets, offsets=up(host_offsets, np.int64),
-            packed=up(packed, np.int32), key_base=dict(key_base), device=dev, **stores,
+            packed=up(packed, np.int32), key_base=dict(key_base), device=dev,
+            max_row_score=dense_max_row_score(scores01), **stores,
         )
 
     def get_all_fields(self) -> List[str]:

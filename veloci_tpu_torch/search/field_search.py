@@ -27,7 +27,7 @@ from ..ops.levenshtein import (
 )
 from .boost import apply_boost_scalar
 from ..ops.levenshtein_sweep import (
-    levenshtein_sweep_banded,
+    levenshtein_select_banded,
     levenshtein_sweep_banded_batch,
     levenshtein_sweep_full_batch,
 )
@@ -138,12 +138,23 @@ def _merge_matches(dictionary, swept, extra):
     return matched[order], dists[order], prefixes[order]
 
 
+def _band(items) -> int:
+    return 2 if max(d for _t, d, _sw in items) <= 2 else 4
+
+
 def _select(sweep, items):
     """One launch over ``sweep`` for ``items`` [(lower_term, distance,
     starts_with)], matched on the prefix distance for ``starts_with`` and
-    on the distance otherwise -> per item (sweep ids, distances, is_prefix)."""
+    on the distance otherwise -> per item (sweep ids, distances, is_prefix).
+    A lone item the band holds takes the fused select, whose kernel writes
+    only the matches; every other set one sweep and ``select_matches``."""
     dev = sweep.chars_t.device
     full = any(sw or d > MAX_BAND for _t, d, sw in items)
+    if len(items) == 1 and not full:
+        lower_term, distance, _sw = items[0]
+        query, qlen = encode_query(lower_term)
+        return [levenshtein_select_banded(
+            sweep.chars_t, sweep.lengths, sweep.sweep_ids, query, qlen, _band(items), distance)]
     dist, prefix_dist, ispref = _sweep(sweep, items, full)
     distances = torch.tensor([d for _t, d, _sw in items], dtype=torch.int32, device=dev)
     crit = dist
@@ -164,8 +175,7 @@ def _select(sweep, items):
 
 def _sweep(sweep, items, full: bool):
     """One sweep launch over ``items`` [(lower_term, distance, starts_with)]
-    -> (dist, prefix_dist, is_prefix), each [len(items), M]. The banded
-    kernel takes its single-query entry point when there is one item."""
+    -> (dist, prefix_dist, is_prefix), each [len(items), M]."""
     dev = sweep.chars_t.device
     queries = np.zeros((len(items), MAX_QUERY_CHARS), dtype=np.uint16)
     qlens = np.zeros(len(items), dtype=np.int32)
@@ -175,17 +185,14 @@ def _sweep(sweep, items, full: bool):
     ql_t = torch.from_numpy(qlens).to(dev)
     if full:
         return levenshtein_sweep_full_batch(sweep.chars_t, sweep.lengths, q_t, ql_t)
-    band = 2 if max(d for _t, d, _sw in items) <= 2 else 4
-    if len(items) == 1:
-        out = levenshtein_sweep_banded(sweep.chars_t, sweep.lengths, q_t[0], ql_t, band=band)
-        return tuple(o[None] for o in out)
-    return levenshtein_sweep_banded_batch(sweep.chars_t, sweep.lengths, q_t, ql_t, band=band)
+    return levenshtein_sweep_banded_batch(sweep.chars_t, sweep.lengths, q_t, ql_t, band=_band(items))
 
 
 def prefetch_fuzzy_matches(index, specs) -> Dict[Tuple[str, str, int, bool], tuple]:
     """Every match of every ``(field, lower_term, distance, starts_with)``
     spec. Per field, the specs the band holds (distance <= 4, no
-    ``starts_with``) take ONE banded sweep launch and the others (their
+    ``starts_with``) take ONE banded launch (the fused select when there is
+    one such spec, else the batched sweep) and the others (their
     matches need the full distance, or the distance over term prefixes)
     ONE full-width launch. The field's terms longer than the sweep matrix
     take one more full-width launch over their first 32 chars for the
