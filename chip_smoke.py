@@ -59,6 +59,20 @@ Phases (any failure is an exception and a non-zero exit):
              field searches, so requests are not answered from a cache
              (filter masks and boost factors are cached per index, as on
              the batched route).
+             The fifth main path, ``regex``, is the server's
+             ``search?query=*foo*`` traffic, code and substring search:
+             256 lone query strings through ``search`` (seed 8, zipf
+             words): a third ``*<3-4 middle chars>*``, a third ``<first 2
+             chars>*<last 2 chars>``, a third ``*<last 3 chars>``, half
+             of them with a second plain word; each leaf expands over
+             title, ent_seq, cat and pop. Each request's top 10 is read
+             back with ``search_to_result_with_doc``, half with ``select``
+             title and cat, half whole documents. It must launch the DFA
+             walk (B8) once a regex leaf for each matrix of its field (the
+             sweep rows, and the long terms where the field has them), and
+             B7; the host-scan count must be 0. p50 and p99 of a request
+             and of its document read, host clock. Every answer and its
+             documents are checked against the CPU plain path.
 5. dense   -- kernel B7 (``csrc/dense_resolve.cu``), its direct path and
              its keys path, each against its plain version on the card,
              bit-equal, at the main path's largest multi-term leaf (its
@@ -70,7 +84,24 @@ Phases (any failure is an exception and a non-zero exit):
              bound: 8 bytes a gathered row read and 4 a document written,
              over 3.35 TB/s; and the leaf resolve from host arrays
              (``resolve_to_anchor_dense``, its one upload included).
-6. select  -- the fused lone-request select (B2, ``levenshtein_select_banded``)
+6. regex   -- kernel B8 (``csrc/regex_dfa.cu``) against its plain walk on
+             the card, bit for bit, in full and prefix mode, with the main
+             path's first pattern of each kind: on the title field's sweep
+             rows (u16, transposed) and long rows (int32 codes, row-major),
+             on ent_seq's sweep rows, on a synthetic 1,000,000-term
+             dictionary, and on an edge set (the empty term, terms of 32,
+             33 and 254 chars and longer, non-ASCII terms, the four code
+             points re folds onto ASCII, patterns with \\w and with a dead
+             state) in both layouts. Per shape the kernel's median ms (CUDA
+             events), the plain walk's, and the bound: 4 bytes a row for
+             its length, 2 a char walked of a u16 row or 4 of an int32 row,
+             1 a row written, over 3.35 TB/s, against ceil(log2 C) + 2
+             integer operations a char step; chars walked counted on this
+             run's data (a row stops at its length, the dead state, or its
+             first prefix accept). The kernel alone by profiler events in
+             phase 8. B7 is checked again at the regex path's largest leaf,
+             which takes its unstaged path (more than 1,024 terms).
+7. select  -- the fused lone-request select (B2, ``levenshtein_select_banded``)
              against its plain twin on the card, equal, on every fuzzy spec
              the lone ``~2`` and executor mixes sent it, and at title x 1
              for every distance up to bands 2 and 4; at title x 1, band 2,
@@ -80,11 +111,11 @@ Phases (any failure is an exception and a non-zero exit):
              (profiler events, in phase 7), its plain twin, and its bound: 64 + 4
              bytes a term read and 12 a match written, 3 operations a band
              cell for the terms that pass the length test.
-7. profile -- every profiler measurement, after every timing above (once
+8. profile -- every profiler measurement, after every timing above (once
              the profiler has run, launches in the process take longer):
-             B7's and the fused select's device times; one batch of each
-             mix (32 lone requests of each executor
-             mix) under torch.profiler: the device's busy share of the
+             B7's, B8's and the fused select's device times; one batch of
+             each mix (32 lone requests of each executor mix and of the
+             regex mix) under torch.profiler: the device's busy share of the
              wall time and its largest kernels; and the single-query banded
              launch (B2's old entry) timed by its kernel's own device
              events, beside its CUDA-event time.
@@ -116,6 +147,9 @@ SINGLES = 32  # one-request batches (single-query sweep entry point)
 SYNTH_TERMS = 1_000_000
 EXECUTOR_REQUESTS = 256  # lone requests per executor mix
 PROFILED_EXECUTOR_REQUESTS = 32
+REGEX_REQUESTS = 256  # lone code-search requests of the regex path
+REGEX_SELECT = ["title", "cat"]  # the select of half of them; the rest read whole documents
+REGEX_SYNTH_TERMS = 1_000_000
 DENSE_SYNTH_DOCS = 6_000_000  # B7's synthetic plane: past the reference's 2^21 sort capacity
 DENSE_SYNTH_ROWS = 1 << 23
 DENSE_SYNTH_TERMS = 64
@@ -276,9 +310,9 @@ def request_mixes(vocab, probs, rng, fields):
     return mixes
 
 
-# the executor mixes: each request alone through vt.search, with or
-# without dense_only
-DENSE_ONLY = {"deep_tree": False, "multi_term": False, "generic_dense": True}
+# the lone-request mixes: each request alone through vt.search, with or
+# without dense_only (the executor mixes, and the regex mix)
+DENSE_ONLY = {"deep_tree": False, "multi_term": False, "generic_dense": True, "regex": False}
 
 
 def executor_mixes(vocab, probs, generic_batch):
@@ -319,6 +353,35 @@ def executor_mixes(vocab, probs, generic_batch):
             multi_leaf["levenshtein_distance"] = 1
         multi.append({"search_req": {"search": multi_leaf}, "top": 10})
     return {"deep_tree": deep, "multi_term": multi, "generic_dense": list(generic_batch)}
+
+
+def regex_mix(vocab, probs):
+    """REGEX_REQUESTS lone code-search query strings (seed 8) over zipf
+    words: a third ``*<3-4 middle chars>*``, a third ``<first 2
+    chars>*<last 2 chars>``, a third ``*<last 3 chars>``; every other
+    triple adds a second plain zipf word; every other request reads back
+    ``select`` REGEX_SELECT, the others whole documents."""
+    rrng = np.random.default_rng(8)
+    out = []
+    for i in range(REGEX_REQUESTS):
+        w = str(rrng.choice(vocab, p=probs))
+        if i % 3 == 0:
+            k = min(int(rrng.integers(3, 5)), len(w))
+            start = int(rrng.integers(0, len(w) - k + 1))
+            query = f"*{w[start:start + k]}*"
+        elif i % 3 == 1:
+            query = f"{w[:2]}*{w[-2:]}"
+        else:
+            query = f"*{w[-3:]}"
+        if (i // 3) % 2 == 0:
+            query += " " + str(rrng.choice(vocab, p=probs))
+        out.append({"regex": query, "select": REGEX_SELECT if i % 2 else None})
+    return out
+
+
+def regex_leaf_keys(req):
+    """The distinct regex leaves of a request, as ``(field, key)``."""
+    return {(p.path, p.key()) for p in req.search_req.walk_parts() if p.is_regex}
 
 
 # ---------------------------------------------------------------- timing
@@ -639,6 +702,132 @@ def dense_device_phase(postings, rows, shape_args):
                         for path, v in rows[name]["paths"].items()))
 
 
+def walk_steps(regex_dfa, chars_t, lengths, dfa, prefix: bool) -> int:
+    """The chars the DFA walk reads on these inputs: a row stops at its
+    length (at most the matrix width), at the dead state, or, in prefix
+    mode, at its first accept (at once when the start state accepts)."""
+    dev = chars_t.device
+    w = chars_t.shape[0]
+    lens = lengths.to(torch.int64).clamp(max=w)
+    bounds = torch.from_numpy(dfa.boundaries.astype(np.int64)).to(dev)
+    trans = torch.from_numpy(dfa.trans.astype(np.int64)).to(dev)
+    accept = torch.from_numpy(np.asarray(dfa.accept, dtype=bool)).to(dev)
+    state = torch.zeros_like(lens)
+    alive = (lens > 0) & ~(accept[0] & prefix)
+    steps = 0
+    for j in range(int(lens.max()) if lens.numel() else 0):
+        active = alive & (j < lens)
+        steps += int(active.sum())
+        cls = torch.searchsorted(bounds, regex_dfa._codes(chars_t[j]), right=True)
+        state = torch.where(active, trans[cls, state], state)
+        if prefix:
+            alive &= ~(accept[state] & active)
+        alive &= ~((state == dfa.dead) & active)
+    return steps
+
+
+def regex_bound(regex_dfa, chars_t, lengths, dfa, prefix: bool):
+    """(ms, "bytes" | "operations", chars walked) of one B8 launch: what
+    the function needs, 4 bytes a row read for its length, 2 a char walked
+    of a u16 row or 4 of an int32 row, 1 a row written; ceil(log2 C) + 2
+    integer operations a char step (the class's binary search, the table
+    read, the stop test)."""
+    steps = walk_steps(regex_dfa, chars_t, lengths, dfa, prefix)
+    n = lengths.shape[0]
+    moved = 5 * n + chars_t.element_size() * steps
+    c = len(dfa.boundaries) + 1
+    ops = (int(np.ceil(np.log2(c))) + 2) * steps
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes", steps
+
+
+# the edge set's patterns: re's shorthand past ASCII, the folds, a dead
+# state, the empty pattern, a negated class
+REGEX_EDGE_PATTERNS = [r"\w+", "s", "k+", "zzz(a|b)", ".*", "", "[^a]*b", "w1.*"]
+
+
+def regex_layouts(words):
+    """``words`` lowercased as a sweep matrix (``[32, N]`` u16, code points
+    past 0xFFFF as U+FFFD, each row cut at 32) and as int32 row-major codes
+    (``[N, 254]``, -1 past each row's end), with their lengths."""
+    n = len(words)
+    chars = np.zeros((32, n), dtype=np.uint16)
+    codes = np.full((n, 254), -1, dtype=np.int32)
+    lens = np.zeros(n, dtype=np.int32)
+    for i, w in enumerate(words):
+        cps = [ord(c) for c in w.lower()]
+        lens[i] = len(cps)
+        codes[i, : min(len(cps), 254)] = cps[:254]
+        for j, cp in enumerate(cps[:32]):
+            chars[j, i] = cp if cp <= 0xFFFF else 0xFFFD
+    t = {k: torch.from_numpy(v).cuda() for k, v in (("chars", chars), ("codes", codes), ("lens", lens))}
+    return (t["chars"], t["lens"].clamp(max=32).contiguous()), (t["codes"].T, t["lens"])
+
+
+def regex_phase(regex_dfa, index, patterns, report):
+    """B8 against its plain walk, bit for bit, in full and prefix mode, on
+    each shape (see the module's note); the kernel's and the plain walk's
+    ms and the bound with the shape's first pattern in full mode. Returns
+    the rows and each shape's timed arguments, for the profile phase."""
+    erng = np.random.default_rng(81)
+    title, ent = index.fields["title"], index.fields["ent_seq"]
+    title_long = index.long_terms["title"]
+    alphabet = list("abcdefghw0123456789_ -.") + ["\u00e9", "\u212a", "\u0130", "\u0131", "\u017f",
+                                                  "\u65e5", "\U0001F600"]
+    edge = ["".join(erng.choice(alphabet, size=int(k))) for k in erng.integers(0, 40, 20000)]
+    edge[:9] = ["", "a" * 32, "a" * 33, "b" * 254, "w1" * 200, "caf\u00e9", "\u212a", "\u0130x", "\u017f"]
+    edge_u16, edge_i32 = regex_layouts(edge)
+    s_lens = np.sort(erng.integers(1, 33, REGEX_SYNTH_TERMS)).astype(np.int32)  # sorted, as a field's rows
+    s_chars = erng.choice(np.frombuffer("w0123456789abcdefgh".encode(), np.uint8), size=(32, REGEX_SYNTH_TERMS))
+    s_chars = s_chars.astype(np.uint16)
+    s_chars[np.arange(32)[:, None] >= s_lens[None, :]] = 0
+    shapes = {
+        "title sweep rows": (title.chars_t, title.lengths, patterns),
+        "title long rows": (title_long.codes.T, title_long.lengths, patterns),
+        "ent_seq sweep rows": (ent.chars_t, ent.lengths, patterns),
+        "synthetic 1M": (torch.from_numpy(s_chars).cuda(), torch.from_numpy(s_lens).cuda(), patterns),
+        "edge set u16": (*edge_u16, REGEX_EDGE_PATTERNS),
+        "edge set int32": (*edge_i32, REGEX_EDGE_PATTERNS),
+    }
+    rows, timed = {}, {}
+    dead_seen = False
+    for name, (chars_t, lens, pats) in shapes.items():
+        dfas = [regex_dfa.compile_dfa(p, ignore_case=True) for p in pats]
+        if any(d is None for d in dfas):
+            raise AssertionError(f"a regex phase pattern does not compile: {pats}")
+        dead_seen |= any(d.dead >= 0 for d in dfas)
+        matched, errs = [], []
+        for dfa in dfas:
+            for prefix in (False, True):
+                got = regex_dfa.regex_match(chars_t, lens, dfa, prefix)
+                want = regex_dfa.regex_match_plain(chars_t, lens, dfa, prefix)
+                torch.cuda.synchronize()
+                if got.dtype != torch.bool or got.shape != want.shape:
+                    raise AssertionError(f"B8 gave {got.dtype} {tuple(got.shape)} on {name}")
+                errs.append(int((got.to(torch.int8) - want.to(torch.int8)).abs().max()) if got.numel() else 0)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"B8 != plain walk on {name}, pattern {pats[dfas.index(dfa)]!r}, "
+                                         f"prefix {prefix}")
+                matched.append(int(got.sum()))
+        dfa0 = dfas[0]
+        k_ms = time_ms(lambda: regex_dfa.regex_match(chars_t, lens, dfa0, False), iters=20)
+        p_ms = time_ms(lambda: regex_dfa.regex_match_plain(chars_t, lens, dfa0, False), warmup=1, iters=1, reps=3)
+        bound_ms, bound_by, steps = regex_bound(regex_dfa, chars_t, lens, dfa0, False)
+        rows[name] = dict(shape=name, rows=int(lens.shape[0]), width=int(chars_t.shape[0]),
+                          elem_bytes=chars_t.element_size(), patterns=list(pats), timed_pattern=pats[0],
+                          classes=len(dfa0.boundaries) + 1, states=int(dfa0.trans.shape[1]),
+                          chars_walked=steps, matched=matched, equal=True, max_abs_err=max(errs), kernel_ms=k_ms,
+                          plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+        timed[name] = (chars_t, lens, dfa0)
+        log(f"kernel regex_match {name}: N={rows[name]['rows']}, W={rows[name]['width']}, "
+            f"{len(pats)} patterns x full/prefix equal to the plain walk; {pats[0]!r} full: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, {steps} chars walked)")
+    if not dead_seen:
+        raise AssertionError("no regex phase pattern has a dead state")
+    report["regex_rows"] = list(rows.values())
+    return rows, timed
+
+
 def record_select_calls(field_search, index, calls):
     """Route the field search's fused-select calls through a recorder that
     keeps each call's inputs and calls the kernel's wrapper."""
@@ -897,7 +1086,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import veloci_tpu_torch as vt
     from veloci_tpu_torch.ops import _build
-    from veloci_tpu_torch.ops import levenshtein, levenshtein_sweep, postings, search_step
+    from veloci_tpu_torch.ops import levenshtein, levenshtein_sweep, postings, regex_dfa, search_step
     from veloci_tpu_torch.search import executor, field_search
 
     card = card_line()
@@ -985,12 +1174,17 @@ def main() -> None:
     ]
 
     ex_mixes = executor_mixes(vocab, probs, mixes["generic"][0])
+    regex_specs = regex_mix(vocab, probs)
 
     def make(spec, idx):
         """A request dict, or a query string or generator parameters through
         the query generator."""
         if isinstance(spec, str):
             return vt.search_query(idx, vt.SearchQueryGeneratorParameters(search_term=spec))
+        if "regex" in spec:
+            req = vt.search_query(idx, vt.SearchQueryGeneratorParameters(search_term=spec["regex"]))
+            req.select = spec["select"]
+            return req
         if "generator" in spec:
             return vt.search_query(idx, vt.SearchQueryGeneratorParameters.from_dict(spec["generator"]))
         return vt.Request.from_dict(spec)
@@ -1007,6 +1201,7 @@ def main() -> None:
     vt.search_batch([make(singles[0], index)], index)
     for name, reqs in ex_mixes.items():  # the executor's first requests, timed again below
         answer(name, [make(d, index) for d in reqs[:4]], index)
+    answer("regex", [make(d, index) for d in regex_specs[:4]], index)
     torch.cuda.synchronize()
 
     gc_full_ms = []  # full (generation 2) garbage collections during the main path
@@ -1024,8 +1219,10 @@ def main() -> None:
                      "levenshtein_select_banded", "levenshtein_sweep_full_batch")
     }
     kernel_fns["dense_resolve"] = postings.dense_resolve
+    kernel_fns["regex_match"] = regex_dfa.regex_match
     requests_of = dict(mixes, single_fuzzy_d2=[[d] for d in singles])
     requests_of.update({name: [[d] for d in reqs] for name, reqs in ex_mixes.items()})
+    requests_of["regex"] = [[d] for d in regex_specs]
     # the main paths, each with the kernels it must launch: the single-leaf
     # requests, then the query-string trees
     paths = (
@@ -1036,6 +1233,7 @@ def main() -> None:
         ("generic", ("generic",),
          ("levenshtein_sweep_banded_batch", "levenshtein_sweep_full_batch")),
         ("executor", tuple(ex_mixes), ("dense_resolve", "levenshtein_select_banded")),
+        ("regex", ("regex",), ("regex_match", "dense_resolve")),
     )
     answers = {}
     lat = {}
@@ -1044,6 +1242,9 @@ def main() -> None:
     path_routes = {}
     full_calls = []  # the query_string mix's full-width launches
     dense_calls = []  # the multi_term mix's leaves
+    regex_dense_calls = []  # the regex mix's leaves
+    regex_docs, doc_lat = [], []  # the regex mix's documents, and each read's seconds
+    expected_b8 = 0  # B8 launches the regex mix must make: a regex leaf, each matrix of its field
     select_calls = []  # the fused selects of the lone ~2 and executor mixes
     gc.callbacks.append(on_gc)
     for path, names, needed in paths:
@@ -1055,8 +1256,9 @@ def main() -> None:
             lat[name], answers[name], rows_per_batch[name] = [], [], []
             if name == "query_string":
                 real_full = record_full_launches(field_search, index, full_calls)
-            if name == "multi_term":
-                real_dense = record_dense_leaves(executor, dense_calls)
+            if name in ("multi_term", "regex"):
+                real_dense = record_dense_leaves(executor, dense_calls if name == "multi_term"
+                                                 else regex_dense_calls)
             if name == "single_fuzzy_d2" or name in DENSE_ONLY:
                 real_select = record_select_calls(field_search, index, select_calls)
             for batch in requests_of[name]:
@@ -1065,11 +1267,20 @@ def main() -> None:
                 t0 = time.perf_counter()
                 res = answer(name, reqs, index)
                 lat[name].append(time.perf_counter() - t0)
+                if name == "regex":
+                    t0 = time.perf_counter()
+                    regex_docs.append([vt.search_to_result_with_doc(index, r, q.select)
+                                       for r, q in zip(res, reqs)])
+                    doc_lat.append(time.perf_counter() - t0)
+                    for q in reqs:
+                        for field, _key in regex_leaf_keys(q):
+                            expected_b8 += int(index.fields[field].lengths.shape[0] > 0)
+                            expected_b8 += int(len(index.long_terms[field].ids) > 0)
                 rows_per_batch[name].append(sum(index.gathered_rows.values()) - rows0)
                 answers[name].append(res)
             if name == "query_string":
                 field_search.levenshtein_sweep_full_batch = real_full
-            if name == "multi_term":
+            if name in ("multi_term", "regex"):
                 executor.resolve_to_anchor_dense = real_dense
             if name == "single_fuzzy_d2" or name in DENSE_ONLY:
                 field_search.levenshtein_select_banded = real_select
@@ -1085,6 +1296,14 @@ def main() -> None:
     gc.callbacks.remove(on_gc)
     if path_routes["executor"].get("executor", 0) <= 0:
         raise AssertionError("the executor path answered no request on the dense executor")
+    host_scans = path_routes["regex"].get("regex_host_scan", 0)
+    b8_launches = path_launches["regex"]["regex_match"]
+    log(f"regex path: {path_routes['regex'].get('regex_dfa', 0)} regex leaves prefiltered by B8, "
+        f"{host_scans} host scans; B8 launches {b8_launches} (expected {expected_b8}: one a regex leaf "
+        f"for each matrix of its field)")
+    if host_scans or b8_launches != expected_b8 or not expected_b8:
+        raise AssertionError("the regex path did not launch B8 for every regex leaf on every field, "
+                             "or scanned a dictionary on the host")
     gen = path_launches["generic"]
     log(f"generic mix launches: B1 (banded, batch) {gen['levenshtein_sweep_banded_batch']}, "
         f"B3 (full-width) {gen['levenshtein_sweep_full_batch']}")
@@ -1125,11 +1344,18 @@ def main() -> None:
         else:
             n_check = CPU_CHECKED_BATCHES
         t0 = time.perf_counter()
-        for batch, res in list(zip(requests_of[name], results))[:n_check]:
-            cpu = answer(name, [make(d, cpu_index) for d in batch], cpu_index)
+        for k, (batch, res) in enumerate(list(zip(requests_of[name], results))[:n_check]):
+            cpu_reqs = [make(d, cpu_index) for d in batch]
+            cpu = answer(name, cpu_reqs, cpu_index)
             for a, b, d in zip(res, cpu, batch):
                 if result_key(a) != result_key(b):
                     raise AssertionError(f"GPU != CPU plain path for {d}")
+            if name == "regex":
+                for docs, b, q in zip(regex_docs[k], cpu, cpu_reqs):
+                    cpu_docs = vt.search_to_result_with_doc(cpu_index, b, q.select)
+                    if json.dumps([d.to_dict() for d in docs.data]) != json.dumps(
+                            [d.to_dict() for d in cpu_docs.data]):
+                        raise AssertionError(f"GPU != CPU plain path for the documents of {q}")
             checked += len(batch)
         log(f"checked on the CPU: {name}, {n_check} batch(es) in {time.perf_counter() - t0:.1f} s")
     log(f"checked: every answer finite, <= top, (score desc, id desc); {checked} "
@@ -1144,6 +1370,12 @@ def main() -> None:
         report["slice"][name] = row
         log(f"slice {name:>16}: batch {n_req:>3} x {len(ms)}: p50 {row['p50_ms']:.3f} ms, "
             f"p99 {row['p99_ms']:.3f} ms, {row['qps']:.1f} QPS")
+    ms = np.array(doc_lat) * 1e3
+    report["slice"]["regex_documents"] = dict(
+        reads=len(ms), p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+        samples_ms=ms.tolist(), host_scans=host_scans, b8_launches=b8_launches)
+    log(f"slice regex document reads (top 10, half select {REGEX_SELECT}, half whole): x {len(ms)}: "
+        f"p50 {np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms")
 
     # ---- kernel B7 at the main path's largest multi-term leaf and on a 6M-document plane
     def leaf_rows(call):
@@ -1151,11 +1383,23 @@ def main() -> None:
         return -1 if leaf is None else leaf[5]
 
     largest = max(dense_calls, key=leaf_rows)
-    del dense_calls
+    regex_largest = max(regex_dense_calls, key=lambda call: len(call[1]))
+    del dense_calls, regex_dense_calls
+    if len(regex_largest[1]) <= 1024:
+        raise AssertionError("the regex path's largest leaf does not take B7's unstaged path")
     dense_rows, dense_args = dense_phase(postings, search_step, {
         "title multi-term leaf": (index, *largest),
+        "regex leaf (unstaged)": (index, *regex_largest),
         "synthetic 6M docs": synthetic_dense_leaf(postings),
     }, report)
+    torch.cuda.empty_cache()
+
+    # ---- kernel B8 on the regex path's fields, a synthetic dictionary and the edge set
+    first_of_kind = []
+    for spec in regex_specs[:3]:
+        part = next(p for p in make(spec, index).search_req.walk_parts() if p.is_regex)
+        first_of_kind.append(part.terms[0])
+    regex_rows, regex_timed = regex_phase(regex_dfa, index, first_of_kind, report)
     torch.cuda.empty_cache()
 
     # ---- the fused select (B2) on the main path's specs and at title x 1
@@ -1166,6 +1410,12 @@ def main() -> None:
     # ---- profiler measurements, after every CUDA-event and host-clock timing
     dense_device_phase(postings, dense_rows, dense_args)
     del dense_args
+    for name, (chars_t, lens, dfa) in regex_timed.items():
+        regex_rows[name]["kernel_alone_ms"] = kernel_only_ms(
+            lambda: regex_dfa.regex_match(chars_t, lens, dfa, False), "regex_walk_kernel")
+        log(f"kernel regex_match {name}: kernel alone (profiler device events) "
+            f"{regex_rows[name]['kernel_alone_ms']:.4f} ms")
+    del regex_timed
     select_row["kernel_ms"] = kernel_only_ms(
         lambda: levenshtein_sweep.levenshtein_select_banded(*select_args), "banded_select_kernel")
     log(f"select at title x 1, band 2, d 2: fused kernel alone (profiler device events) "
@@ -1176,7 +1426,7 @@ def main() -> None:
     profiled.update({
         name: ([make(d, index) for d in reqs[:PROFILED_EXECUTOR_REQUESTS]],
                lambda reqs, name=name: answer(name, reqs, index))
-        for name, reqs in ex_mixes.items()
+        for name, reqs in (*ex_mixes.items(), ("regex", regex_specs))
     })
     profile_phase(profiled, report)
     enc, n_chars = levenshtein.encode_query(mutate(str(title_words[len(title_words) // 3]), 1, rng))
@@ -1235,6 +1485,17 @@ def main() -> None:
          "max_abs_err": max(r["max_abs_err"] for r in dense_rows.values()), "ms": b7["kernel_ms"],
          "plain_ms": b7["plain_ms"], "bound_ms": b7["bound_ms"], "bound_by": b7["bound_by"],
          "library_ms": b7["library_ms"]})
+    # B8 at the regex path's largest launch shape (the title's long rows:
+    # the most chars walked), its first pattern, full mode; no PyTorch call
+    # walks a DFA: library_ms is null
+    b8 = max((regex_rows[k] for k in ("title sweep rows", "title long rows", "ent_seq sweep rows")),
+             key=lambda r: r["chars_walked"])
+    kernels.append(
+        {"name": "regex_match", "route": "cuda", "source": "veloci_tpu_torch/csrc/regex_dfa.cu",
+         "replaces": "veloci_tpu/ops/regex_dfa.py:339", "launches": launches["regex_match"],
+         "max_abs_err": max(r["max_abs_err"] for r in regex_rows.values()), "ms": b8["kernel_ms"],
+         "plain_ms": b8["plain_ms"], "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
+         "library_ms": None})
     report["kernels"] = kernels
     report["launches"] = launches
     out_dir = ROOT / "chiprun_out"

@@ -1,7 +1,9 @@
 """Port tests that need a CUDA device: the hand-written sweep kernels (banded
-and full-width, the fused lone-request select) and the dense resolve (both
-its paths) against their plain PyTorch versions on the card, and the slice (``search_batch`` and ``search``) on the card
-against the same index on the CPU. Tolerance: exact equality (integer
+and full-width, the fused lone-request select), the dense resolve (both
+its paths) and the regex DFA walk (B8) against their plain PyTorch versions
+on the card, and the slice (``search_batch`` and ``search``, regex leaves
+and document reads included) on the card against the same index on the
+CPU. Tolerance: exact equality (integer
 outputs; the same f32 products, maxima order-free, and sums taken in the
 same order, on both devices).
 
@@ -27,6 +29,7 @@ from veloci_tpu_torch import (
     search,
     search_batch,
     search_query,
+    search_to_result_with_doc,
 )
 from veloci_tpu_torch.ops.postings import (
     dense_fast_path,
@@ -36,6 +39,7 @@ from veloci_tpu_torch.ops.postings import (
     dense_resolve_plain,
 )
 from veloci_tpu_torch.ops.levenshtein import encode_query
+from veloci_tpu_torch.ops.regex_dfa import CompiledDfa, compile_dfa, regex_match, regex_match_plain
 from veloci_tpu_torch.ops.levenshtein_sweep import (
     levenshtein_select_banded,
     levenshtein_select_banded_plain,
@@ -436,3 +440,101 @@ def test_select_calls_apart_across_threads_and_fields_of_different_sizes(card):
     with concurrent.futures.ThreadPoolExecutor(6) as pool:
         assert list(pool.map(worker, [0, 1, 2, 0, 1, 2])) == [0] * 6
 
+
+# ---------------------------------------------------------------- B8, the regex DFA walk
+
+REGEX_PATTERNS = ["abc", "a*b", "(ab|ba)", "[^a-c]+", r"\d+", r"\w+", "x.*", ".*e.*", "[a-f]+[0-9]?",
+                  "(a|b)*c", "zzz", ""]
+
+
+def _walk_rows(words):
+    """``words`` as a sweep matrix ``[32, N]`` u16 (lowercased, cut at 32,
+    as the index stores them) and as int32 row-major codes ``[N, 254]``."""
+    n = len(words)
+    chars = np.zeros((32, n), dtype=np.uint16)
+    codes = np.full((n, 254), -1, dtype=np.int32)
+    lens = np.zeros(n, dtype=np.int32)
+    for i, w in enumerate(words):
+        cps = [ord(c) for c in w.lower()]
+        lens[i] = len(cps)
+        codes[i, : min(len(cps), 254)] = cps[:254]
+        for j, c in enumerate(cps[:32]):
+            chars[j, i] = c if c <= 0xFFFF else 0xFFFD
+    return chars, codes, lens
+
+
+def _edge_words(rng):
+    alphabet = list("abcdefxyz019_ -.") + ["\u00e9", "\u212a", "\u0130", "\u017f", "\u65e5", "\U0001F600"]
+    words = ["".join(rng.choice(alphabet, size=int(k))) for k in rng.integers(0, 40, 4000)]
+    words[:8] = ["", "a" * 32, "a" * 33, "b" * 254, "x" * 300, "caf\u00e9", "\u212a", "abc"]
+    return words
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", [False, True])
+@pytest.mark.parametrize("pattern", REGEX_PATTERNS)
+def test_regex_match_equals_plain_on_card(card, pattern, prefix):
+    """B8 against its plain version, bit for bit: the sweep layout (u16,
+    transposed) and the long-row layout (int32 codes through a transposed
+    view), on the edge set and a random dictionary."""
+    rng = np.random.default_rng(21)
+    dfa = compile_dfa(pattern, ignore_case=True)
+    assert dfa is not None
+    chars, codes, lens = _walk_rows(_edge_words(rng))
+    c16, c32, ln = (torch.from_numpy(a).to(card) for a in (chars, codes, lens))
+    for view, lengths in ((c16, ln.clamp(max=32).contiguous()), (c32.T, ln)):
+        got = regex_match(view, lengths, dfa, prefix)
+        want = regex_match_plain(view, lengths, dfa, prefix)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bool and torch.equal(got, want), pattern
+
+
+@pytest.mark.cuda
+def test_regex_match_random_patterns_on_card(card):
+    """Random patterns of the DFA parser's grammar, full and prefix mode,
+    each with its dead state and again with none named (the walk then
+    never stops early; the answer is the same)."""
+    rng = np.random.default_rng(22)
+    atoms = ["a", "b", "c", ".", "[a-c]", "[^b]", r"\d", r"\w", "x"]
+    chars, codes, lens = _walk_rows(_edge_words(rng))
+    c16, ln = torch.from_numpy(chars).to(card), torch.from_numpy(lens).to(card).clamp(max=32).contiguous()
+    before, walked = regex_match.launches, 0
+    for _ in range(60):
+        parts = [str(rng.choice(atoms)) + str(rng.choice(["", "*", "+", "?"])) for _ in range(int(rng.integers(1, 5)))]
+        dfa = compile_dfa("".join(parts), ignore_case=True)
+        if dfa is None:
+            continue
+        assert dfa.dead >= 0
+        no_dead = CompiledDfa(dfa.boundaries, dfa.trans, dfa.accept, -1)
+        for prefix in (False, True):
+            want = regex_match_plain(c16, ln, dfa, prefix)
+            assert torch.equal(regex_match(c16, ln, dfa, prefix), want)
+            assert torch.equal(regex_match(c16, ln, no_dead, prefix), want)
+        walked += 1
+    assert walked > 30 and regex_match.launches == before + 4 * walked
+
+
+@pytest.mark.cuda
+def test_regex_search_and_documents_on_card(card):
+    """Regex leaves through ``search`` (the dense executor, B8 then B3 for
+    the distances, B7 for the planes) and the documents read back: the card
+    and the CPU give the same answers."""
+    rng = np.random.default_rng(23)
+    vocab = [f"w{i:x}{'abcdefgh'[i % 8] * (1 + i % 7)}" for i in range(800)] + ["x" * 40 + "bbb"]
+    docs = "\n".join('{"title": "%s", "cat": "c%d"}' % (" ".join(rng.choice(vocab, size=5)), i % 16)
+                     for i in range(3000))
+    config = '["*GLOBAL*"]\nfeatures = ["All"]\n'
+    pers = Persistence.from_built(create_indices_from_str(docs, config))
+    on_cpu = TorchIndex.from_persistence(pers, "cpu")
+    on_card = TorchIndex.from_persistence(pers, card)
+    before = regex_match.launches
+    for q in ("*bbb", "*1a*", "w1*aa", "*bbb AND w2*", "*c* w10"):
+        a_req = search_query(on_card, SearchQueryGeneratorParameters(search_term=q))
+        b_req = search_query(on_cpu, SearchQueryGeneratorParameters(search_term=q))
+        a, b = search(a_req, on_card), search(b_req, on_cpu)
+        assert a.num_hits == b.num_hits > 0, q
+        assert [(h.id, h.score) for h in a.data] == [(h.id, h.score) for h in b.data], q
+        for select in (None, ["title", "cat"]):
+            da, db = search_to_result_with_doc(on_card, a, select), search_to_result_with_doc(on_cpu, b, select)
+            assert [d.doc for d in da.data] == [d.doc for d in db.data]
+    assert regex_match.launches > before and not on_card.path_counts["regex_host_scan"]

@@ -387,8 +387,8 @@ def test_cases_cover_the_routes(built, batched):
 # extras the reference's _generic_eligible sends to its per-request
 # executor: the port answers them on its executor as the reference's
 # executor does ("executor"), or raises the executor's error; boost_term and
-# text_locality raise naming A13; a regex leaf raises naming A8 (the
-# reference resolves it on the host)
+# text_locality raise naming A13. A regex leaf is held to the reference's
+# host re scan (VELOCI_REGEX_DEVICE=0: ROADMAP C6)
 OUT_OF_SLICE = {
     "boost_one_to_n_path": (_with(_leaf("w0a"), boost=[{"path": "labels[]", "boost_fun": "Multiply"}]), "executor"),
     "boost_without_column": (_with(_leaf("w0a"), boost=[{"path": "nr", "boost_fun": "Multiply"}]), "VelociError"),
@@ -399,7 +399,7 @@ OUT_OF_SLICE = {
     "boost_term": (_with(_leaf("w0a"), boost_term=[{"terms": ["w1bb"], "path": "title", "boost": 2.0}]), "A13"),
     "text_locality": (_with(_leaf("w0a"), text_locality=True, **CAT), "A13"),
     "regex_in_filter": (_with(_leaf("w0a"), filter={"search": {"terms": ["c1.*"], "path": "cat",
-                                                               "is_regex": True}}), "A8"),
+                                                               "is_regex": True}}), "executor"),
 }
 
 
@@ -415,18 +415,20 @@ def _outcome(call):
 def test_out_of_slice_raises(built, name):
     pers, _ref, indexes, _routes, _ref_route = built
     req, expect = OUT_OF_SLICE[name]
-    if expect != "A8":
+    if name != "regex_in_filter":  # the reference's batched route resolves a regex filter leaf on the host
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(batch_mod, "SMALL_DOCS", 1)
             assert batch_mod._generic_eligible(Request.from_dict(req), pers, pers.device_combined()) is None
     index = indexes["ref_disk"]
     batch = [PortRequest.from_dict(CASES["facets"]), PortRequest.from_dict(req)]
-    if expect in ("A8", "A13"):
+    if expect == "A13":
         with pytest.raises(NotImplementedError, match=expect):
             search_batch(batch, index)
         return
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ex_mod, "SMALL_DOCS", 0)
+        mp.setenv("VELOCI_REGEX_DEVICE", "0")
+        mp.setattr(pers, "_field_search_cache", {}, raising=False)
         want = _outcome(lambda: ex_mod.search(Request.from_dict(req), pers, dense_only=True))
     before = index.path_counts["executor"]
     got = _outcome(lambda: search_batch(batch, index)[1])

@@ -1,7 +1,8 @@
 """The port stands alone: it never imports ``jax`` nor anything of the JAX
 package ``veloci_tpu/``, runs from a tree that holds only the port, the
-native indexer's source and ``chip_smoke.py``, and refuses a CUDA device it
-does not have. ``chip_smoke.py`` refuses to run without a card, in the
+native indexer's source and ``chip_smoke.py`` (its search, a regex request
+and a document read included), and refuses a CUDA device it does not
+have. ``chip_smoke.py`` refuses to run without a card, in the
 repository, in that tree and alone."""
 
 import ast
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 from veloci_tpu_torch import (
     Persistence, Request, SearchQueryGeneratorParameters, create_indices_from_str, load_index,
-    search, search_batch, search_query,
+    search, search_batch, search_query, search_to_result_with_doc,
 )
 
 rng = np.random.default_rng(3)
@@ -64,6 +65,14 @@ for d in ({"search_req": deep}, {"search_req": leaf(["world", "x"])}, {"search_r
     assert res.num_hits > 0 and res.data, res
     assert search(Request.from_dict(d), index, dense_only=True).data == res.data
 assert index.path_counts["executor"] == 5, index.path_counts
+regex = search_query(index, SearchQueryGeneratorParameters(search_term="*ell*"))
+res = search(regex, index)
+assert res.num_hits > 0 and res.data, res
+assert index.path_counts["regex_dfa"] > 0 and not index.path_counts["regex_host_scan"], index.path_counts
+whole = search_to_result_with_doc(index, res)
+picked = search_to_result_with_doc(index, res, ["title"])  # "{}" keeps no select stores: {}
+assert [d.hit for d in whole.data] == [d.hit for d in picked.data] == res.data, (whole, picked)
+assert all("ell" in d.doc["title"].lower() for d in whole.data), whole
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (m == "jax" or m.startswith("jax."))]
 assert not loaded, loaded
 assert sys.argv[1] != "block" or sys.modules["jax"] is None

@@ -267,21 +267,23 @@ def test_sweep_entry_points_run_on_cpu(built):
 # filter_on_tree) are parity cases of test_torch_generic.py. The shapes
 # the reference answers on its per-request executor only go to the port's
 # executor: a facet on "nr" (more values than the batched gate), leaves
-# with several terms, deeper trees, node options; their answers equal the
-# reference executor's, and a boost on "nr" (no boost column) raises its
-# VelociError. The rest raise NotImplementedError naming their ROADMAP item.
+# with several terms, deeper trees, node options, regex leaves (held to the
+# reference's host re scan, VELOCI_REGEX_DEVICE=0: ROADMAP C6), leaves that
+# ask for snippets; their answers equal the reference executor's, and a
+# boost on "nr" (no boost column) raises its VelociError. The rest raise
+# NotImplementedError naming their ROADMAP item.
 OUT_OF_SLICE = {
     "request_boost": (dict(_leaf("w1bb"), boost=[{"path": "nr", "boost_fun": "Log10"}]), "VelociError"),
     "facets": (dict(_leaf("w1bb"), facets=[{"field": "nr"}]), "executor"),
     "why_found": (dict(_leaf("w1bb"), why_found=True), "A13"),
     "explain": (dict(_leaf("w1bb"), explain=True), "A13"),
-    "regex": (_leaf("w1.*", is_regex=True), "A8"),
-    "snippet": (_leaf("w1bb", snippet=True), "A9"),
+    "regex": (_leaf("w1.*", is_regex=True), "executor"),
+    "snippet": (_leaf("w1bb", snippet=True), "executor"),
     "leaf_options": (_leaf("w1bb", options={"explain": True}), "A13"),
     "two_terms": ({"search_req": {"search": {"terms": ["w1bb", "b"], "path": "title"}}}, "executor"),
     "four_alternations": (_or(_and(_or(_and(_leaf("w1bb"), _leaf("w2ccc")), _leaf("w0a")), _leaf("w10")),
                               _leaf("w3dddd")), "executor"),
-    "regex_in_and": (_and(_leaf("w1bb"), _leaf("w1.*", is_regex=True)), "A8"),
+    "regex_in_and": (_and(_leaf("w1bb"), _leaf("w1.*", is_regex=True)), "executor"),
     "two_terms_in_or": (_or(_leaf("w1bb"), {"search_req": {"search": {"terms": ["w2ccc", "b"], "path": "title"}}}),
                         "executor"),
     "tree_node_options": ({"search_req": {"and": {"queries": [_leaf("w0a")["search_req"],
@@ -302,6 +304,8 @@ def test_out_of_slice_raises(built, name):
         return
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ex_mod, "SMALL_DOCS", 0)
+        mp.setenv("VELOCI_REGEX_DEVICE", "0")
+        mp.setattr(pers, "_field_search_cache", {}, raising=False)
         try:
             want = ex_mod.search(Request.from_dict(req), pers, dense_only=True)
         except Exception as e:  # noqa: BLE001 -- the error type is what is compared

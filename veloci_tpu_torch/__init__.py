@@ -11,21 +11,26 @@ Current slice: :func:`search_batch` answers requests whose tree is a
 search leaf, a flat OR or AND, an AND of ORs, or an OR of such ANDs, with
 leaves that are exact, fuzzy at any distance, or ``starts_with``, with or
 without token-value boosts -- which covers the query generator's output for
-query strings with ``*`` wildcards -- and with filters, boost columns,
-facets and phrase boosts, on its batched tree routes. :func:`search`
+query strings with ``*`` wildcards at the end -- and with filters, boost
+columns, facets and phrase boosts, on its batched tree routes. :func:`search`
 answers one request: on those routes when they take it, else (deep trees,
 leaves with several terms, leaf and node boost options, 1:n boosts, facet
-fields past the batched gates) on the per-request dense executor, which
-``search_batch`` also hands such requests to. The Levenshtein sweeps and the
-executor's dense posting resolve are hand-written CUDA kernels
+fields past the batched gates, regex leaves -- a ``*`` inside a query-string
+word -- and leaves that ask for snippets) on the per-request dense
+executor, which ``search_batch`` also hands such requests to.
+:func:`search_to_result_with_doc` reads a result's documents back (whole,
+or the ``select`` fields), and :func:`highlight_field` gives a field's
+snippets. The Levenshtein sweeps, the regex DFA walk and the executor's
+dense posting resolve are hand-written CUDA kernels
 (``csrc/banded_levenshtein.cu``, ``csrc/full_levenshtein.cu``,
-``csrc/dense_resolve.cu``). ``boost_term``, ``text_locality``,
-``why_found``, ``explain``, ``suggest``, regex leaves and leaf snippets
-raise ``NotImplementedError``.
+``csrc/regex_dfa.cu``, ``csrc/dense_resolve.cu``). ``boost_term``,
+``text_locality``, ``why_found``, ``explain`` and ``suggest`` raise
+``NotImplementedError``.
 
     index = load_index("path/to/index")  # on the card; load_index(path, "cpu") on the CPU
     results = search_batch([Request.from_dict(d) for d in dicts], index)
     result = search(Request.from_dict(d), index)
+    with_docs = search_to_result_with_doc(index, result, select=["title"])
     query = search_query(index, SearchQueryGeneratorParameters(search_term="haus AND bu*"))
     results = search_batch([query], index)
 
@@ -38,20 +43,25 @@ from .persistence import Persistence, TorchIndex, load_index
 from .query.generator import SearchQueryGeneratorParameters, search_query
 from .query.request import Request
 from .search.batch import search_batch
-from .search.executor import search
-from .search.result import Hit, SearchResult
+from .search.executor import search, search_to_result_with_doc
+from .search.field_search import highlight_field
+from .search.result import DocWithHit, Hit, SearchResult, SearchResultWithDoc
 
 __all__ = [
+    "DocWithHit",
     "Hit",
     "Persistence",
     "Request",
     "SearchQueryGeneratorParameters",
     "SearchResult",
+    "SearchResultWithDoc",
     "TorchIndex",
     "add_token_values_to_tokens",
     "create_indices_from_str",
+    "highlight_field",
     "load_index",
     "search",
     "search_batch",
     "search_query",
+    "search_to_result_with_doc",
 ]

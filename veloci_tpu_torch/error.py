@@ -38,3 +38,7 @@ class AllFieldsFilteredError(VelociError):
         super().__init__(
             f"all fields filtered out; all_fields={sorted(all_fields)}, filter={filter_}"
         )
+
+
+class MissingTextIdError(VelociError):
+    pass

@@ -55,6 +55,14 @@ class Csr:
     def num_keys(self) -> int:
         return len(self.offsets) - 1
 
+    def get_values(self, key: int) -> np.ndarray:
+        if key >= self.num_keys or key < 0:
+            return np.empty(0, dtype=np.uint32)
+        return self.values[self.offsets[key] : self.offsets[key + 1]]
+
+    def has_values(self, key: int) -> bool:
+        return 0 <= key < self.num_keys and self.offsets[key] != self.offsets[key + 1]
+
     def get_values_multi(self, keys: np.ndarray) -> np.ndarray:
         """Gather and concatenate values for many keys (vectorised)."""
         keys = np.asarray(keys, dtype=np.int64)
@@ -83,6 +91,21 @@ class Direct:
     @property
     def num_keys(self) -> int:
         return len(self.values)
+
+    def get_value(self, key: int) -> Optional[int]:
+        if key < 0 or key >= len(self.values):
+            return None
+        v = self.values[key]
+        return None if v == EMPTY else int(v)
+
+    def get_values(self, key: int) -> np.ndarray:
+        v = self.get_value(key)
+        if v is None:
+            return np.empty(0, dtype=np.uint32)
+        return np.array([v], dtype=np.uint32)
+
+    def has_values(self, key: int) -> bool:
+        return self.get_value(key) is not None
 
     def get_values_multi(self, keys: np.ndarray) -> np.ndarray:
         """The values of many keys, absent ones skipped."""
@@ -232,6 +255,10 @@ class TermDictionary:
                 (len(t) for t in lower), dtype=np.int32, count=len(lower)
             )
         return cached
+
+    def ord_to_term(self, term_id: int) -> str:
+        """id -> term (reference `ord_to_term`, search_field.rs:36-51)."""
+        return self.terms[term_id]
 
     # --- fuzzy sweep support ---------------------------------------------
     def char_matrix(self) -> Tuple[np.ndarray, np.ndarray]:

@@ -34,6 +34,7 @@ __all__ = [
     "NativeIdPath",
     "lz_available",
     "lz_compress",
+    "lz_decompress",
 ]
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -193,6 +194,8 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.vl_lz_compress.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
     lib.vl_lz_bound.restype = ctypes.c_int64
     lib.vl_lz_bound.argtypes = [ctypes.c_int64]
+    lib.vl_lz_decompress.restype = ctypes.c_int64
+    lib.vl_lz_decompress.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
     p64 = ctypes.POINTER(ctypes.c_uint64)
     p32 = ctypes.POINTER(ctypes.c_uint32)
     lib.vl_pack_csr.restype = ctypes.c_int64
@@ -366,6 +369,19 @@ def lz_compress(data: bytes) -> Optional[bytes]:
     if n <= 0:
         return None
     return dst.raw[:n]
+
+
+def lz_decompress(data: bytes, raw_size: int) -> bytes:
+    """Decompress one block of the native codec to its ``raw_size`` bytes
+    (``veloci_tpu/native.py:434-441``)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native LZ codec unavailable for decompression")
+    dst = ctypes.create_string_buffer(max(raw_size, 1))
+    n = lib.vl_lz_decompress(data, len(data), dst, raw_size)
+    if n != raw_size:
+        raise ValueError(f"corrupt LZ block (got {n}, want {raw_size})")
+    return dst.raw[:raw_size]
 
 
 # ------------------------------------------------------------- CSR packing

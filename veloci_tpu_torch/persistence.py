@@ -29,12 +29,14 @@ import numpy as np
 import torch
 
 from .create import TEXTINDEX, TO_ANCHOR_ID_SCORE, BuiltIndex
+from .doc_store import DocLoader
 from .error import FstNotFoundError, VelociError
 from .indices import AnchorScoreCsr, Csr, Direct, PhraseCsr, TermDictionary
 from .ops.postings import dense_max_row_score
 
 __all__ = [
-    "FieldSweep", "LongTerms", "Persistence", "TorchIndex", "long_term_rows", "load_index",
+    "FieldSweep", "LongTerms", "Persistence", "RegexRows", "TorchIndex", "long_term_rows",
+    "load_index", "regex_flags",
 ]
 
 _MANIFEST = "metaData.json"
@@ -252,6 +254,64 @@ class LongTerms(NamedTuple):
     ids: np.ndarray  # [L] int64 row -> dictionary term id
 
 
+class RegexRows(NamedTuple):
+    """What a regex leaf's prefilter reads of one field, on the host: two
+    flags a row of the sweep matrix and of the long terms, for the rows
+    whose ``re`` answer the folded ASCII DFA may miss, and the terms in no
+    row (:func:`regex_flags`)."""
+
+    sweep_flags: np.ndarray  # [M] uint8, per sweep row (in FieldSweep order)
+    long_flags: np.ndarray  # [L] uint8, per long row (in LongTerms order)
+    sweep_ids: np.ndarray  # [M] int64 sweep row -> term id, on the host
+    row_of: np.ndarray  # [n] int64 term id -> sweep row, -1 for a term in none
+    unswept: np.ndarray  # term ids in no row: the empty term, and terms whose
+    # lowercase is longer than 32 chars though the term is not
+
+
+# regex_flags bits
+NONASCII = 1  # a code point above 127, or U+001C-U+001F (re's \s takes them)
+FOLD_SPECIAL = 2  # U+0130, U+0131, U+017F or U+212A
+_FOLD_SPECIAL = (0x130, 0x131, 0x17F, 0x212A)
+
+
+def regex_flags(terms) -> np.ndarray:
+    """Per term, as a uint8 of :data:`NONASCII` and :data:`FOLD_SPECIAL`
+    bits, from the terms as ``re`` sees them (not lowercased).
+
+    The regex prefilter's DFA knows ASCII only. ``re``'s ``\\w``, ``\\d`` and
+    ``\\s`` also take non-ASCII letters, digits and spaces, and ``\\s`` the
+    separators U+001C-U+001F (NONASCII). Under ``IGNORECASE``, ``re`` folds
+    U+0130 and U+0131 onto ``i``, U+017F onto ``s`` and U+212A onto ``k``;
+    and the sweep rows hold ``lower()``, which turns U+212A into ASCII
+    ``k`` and U+0130 into two chars (FOLD_SPECIAL). Vectorised over the
+    dictionary's code points."""
+    n = len(terms)
+    flags = np.zeros(n, dtype=np.uint8)
+    if not n:
+        return flags
+    cps = np.frombuffer("\x00".join(terms).encode("utf-32-le"), dtype=np.uint32)
+    sep = cps == 0  # terms hold no NUL: the dictionary's own file joins them by it
+    term_of = np.cumsum(sep) - sep  # each code point's term
+    wide = ((cps > 127) | ((cps >= 0x1C) & (cps <= 0x1F))) & ~sep
+    fold = np.isin(cps, _FOLD_SPECIAL)
+    flags[np.unique(term_of[wide])] |= NONASCII
+    flags[np.unique(term_of[fold])] |= FOLD_SPECIAL
+    return flags
+
+
+def _regex_rows(dictionary, sweep_ids: np.ndarray, long_ids: np.ndarray) -> RegexRows:
+    flags = regex_flags(dictionary.terms)
+    n = len(dictionary)
+    sweep_ids = np.asarray(sweep_ids, dtype=np.int64)
+    valid = sweep_ids >= 0  # pad rows map to -1
+    row_of = np.full(n, -1, dtype=np.int64)
+    row_of[sweep_ids[valid]] = np.flatnonzero(valid)
+    in_row = row_of >= 0
+    in_row[long_ids] = True
+    return RegexRows(np.where(valid, flags[np.maximum(sweep_ids, 0)] if n else 0, 0).astype(np.uint8),
+                     flags[long_ids], sweep_ids, row_of, np.flatnonzero(~in_row).astype(np.int64))
+
+
 def long_term_rows(dictionary):
     """The terms longer than the sweep matrix (``dictionary.long_term_ids()``),
     lowercased: ``(chars [L, 32] uint16, lengths32 [L] int32, codes [L, W]
@@ -302,7 +362,7 @@ class TorchIndex:
     def __init__(
         self, *, num_docs, all_fields, dictionaries, fields, long_terms, host_offsets, offsets,
         packed, key_base, device, max_row_score=None, columns=None, key_value_stores=None,
-        boost_stores=None, phrase_indices=None,
+        boost_stores=None, phrase_indices=None, regex_rows=None, doc_store_bytes=None,
     ) -> None:
         self.device = device
         self.num_docs = int(num_docs)
@@ -310,6 +370,7 @@ class TorchIndex:
         self.dictionaries = dictionaries  # field -> TermDictionary
         self.fields: Dict[str, FieldSweep] = fields
         self.long_terms: Dict[str, LongTerms] = long_terms  # see long_term_rows
+        self.regex_rows: Dict[str, RegexRows] = regex_rows or {}
         self.host_offsets = host_offsets  # [num_keys + 2] int64, host
         self.offsets = offsets  # the same, on the device
         self.packed = packed  # [nnz, 2] int32 (anchor, f32 bits of score/100)
@@ -321,6 +382,8 @@ class TorchIndex:
         self.key_value_stores: Dict[str, Csr | Direct] = key_value_stores or {}
         self.boost_stores: Dict[str, Tuple[np.ndarray, np.ndarray]] = boost_stores or {}
         self.phrase_indices: Dict[str, PhraseCsr] = phrase_indices or {}
+        self.doc_store_bytes: Optional[bytes] = doc_store_bytes  # docs.bin, as read
+        self._doc_loader: Optional[DocLoader] = None
         self.cache: dict = {}
         self.path_counts: Counter = Counter()  # requests answered per route
         self.gathered_rows: Counter = Counter()  # posting rows read per route
@@ -360,6 +423,7 @@ class TorchIndex:
             {f: d.char_matrix_compact() for f, d in pers.dictionaries.items()}, *comb, device,
             columns=pers.columns, key_value_stores=pers.key_value_stores,
             boost_stores=pers.boost_stores, phrase_indices=pers.phrase_indices,
+            doc_store_bytes=pers.doc_store_bytes,
         )
 
     @classmethod
@@ -388,8 +452,15 @@ class TorchIndex:
             order = np.argsort(lengths, kind="stable")
             return np.asarray(chars)[order], np.asarray(lengths)[order], np.asarray(sweep_ids)[order]
 
-        sweeps = {f: sweep(*by_length(*arrays)) for f, arrays in fields.items()}
-        long_terms = {f: long(*long_term_rows(d)) for f, d in dictionaries.items()}
+        sorted_rows = {f: by_length(*arrays) for f, arrays in fields.items()}
+        sweeps = {f: sweep(*rows) for f, rows in sorted_rows.items()}
+        long_rows = {f: long_term_rows(d) for f, d in dictionaries.items()}
+        long_terms = {f: long(*rows) for f, rows in long_rows.items()}
+        regex_rows = {
+            f: _regex_rows(d, sorted_rows[f][2] if f in sorted_rows else np.empty(0, np.int64),
+                           long_rows[f][4])
+            for f, d in dictionaries.items()
+        }
         host_offsets = np.asarray(offsets, dtype=np.int64)
         scores01 = np.asarray(scores).astype(np.float32) / np.float32(100.0)
         packed = np.stack(
@@ -399,7 +470,7 @@ class TorchIndex:
             num_docs=num_docs, all_fields=all_fields, dictionaries=dictionaries, fields=sweeps,
             long_terms=long_terms, host_offsets=host_offsets, offsets=up(host_offsets, np.int64),
             packed=up(packed, np.int32), key_base=dict(key_base), device=dev,
-            max_row_score=dense_max_row_score(scores01), **stores,
+            max_row_score=dense_max_row_score(scores01), regex_rows=regex_rows, **stores,
         )
 
     def get_all_fields(self) -> List[str]:
@@ -437,6 +508,19 @@ class TorchIndex:
         if store is None:
             raise VelociError(f"boost index not found: {path!r}")
         return store
+
+    def num_text_ids(self, field: str) -> int:
+        return int(self.columns[_strip_textindex(field)]["textindex_metadata"]["num_text_ids"])
+
+    @property
+    def doc_loader(self) -> DocLoader:
+        """The document store's reader, made at first use
+        (``persistence.py:647``)."""
+        if self._doc_loader is None:
+            if self.doc_store_bytes is None:
+                raise VelociError("no document store")
+            self._doc_loader = DocLoader(self.doc_store_bytes)
+        return self._doc_loader
 
     def device_boost(self, path: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """A boost column on the device, padded to ``[num_docs]``: (values

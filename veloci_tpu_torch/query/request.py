@@ -28,6 +28,7 @@ __all__ = [
     "RequestPhraseBoost",
     "FacetRequest",
     "SnippetInfo",
+    "DEFAULT_SNIPPET_INFO",
 ]
 
 
@@ -48,6 +49,9 @@ class SnippetInfo:
             snippet_connector=d.get("snippet_connector", " ... "),
             max_snippets=d.get("max_snippets", 0xFFFFFFFF),
         )
+
+
+DEFAULT_SNIPPET_INFO = SnippetInfo()
 
 
 @dataclass

@@ -152,9 +152,9 @@ _ADMISSION = (
     (None, lambda r, ix, t: r.text_locality, ("request 'text_locality'", _A13)),
     (None, lambda r, ix, t: r.explain or t.explain, ("request or leaf 'explain'", _A13)),
     (None, lambda r, ix, t: r.suggest, ("request 'suggest'", _A13)),
-    (None, lambda r, ix, t: t.regex or any(p.is_regex for p in _extra_parts(r)),
-     ("a regex leaf", "A8 (regex prefilter)")),
-    (None, lambda r, ix, t: t.snippet, ("leaf snippets", "A9 (highlight)")),
+    ("executor", lambda r, ix, t: t.regex or any(p.is_regex for p in _extra_parts(r)),
+     "a regex leaf, in the tree, a filter or a phrase boost"),
+    ("executor", lambda r, ix, t: t.snippet, "a leaf that asks for snippets"),
     ("executor", lambda r, ix, t: any("[]" in b.path for b in r.boost or ()),
      "a boost over a 1:n path ('[]')"),
     ("executor", lambda r, ix, t: any(not ix.has_index(_boost_path(b)) for b in r.boost or ()),
@@ -625,7 +625,7 @@ def _fuzzy_specs(requests):
     a prefetch spec (``_prefetch_request_fuzzy``, ``:314-336``)."""
     for req in requests:
         for p in (*req.search_req.walk_parts(), *_extra_parts(req)):
-            if clamped_distance(p) > 0:
+            if clamped_distance(p) > 0 and not p.is_regex:
                 yield leaf_field(p), p.terms[0].lower(), clamped_distance(p), bool(p.starts_with)
 
 

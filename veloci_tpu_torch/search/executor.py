@@ -20,12 +20,22 @@ over that hit set and the exact top-k. The reference computes these planes
 with numpy below ``SMALL_DOCS`` documents; the port has no host branch.
 
 The executor keeps no memo of field searches across requests: each request
-runs its own (its fuzzy leaves in one sweep launch per field and kernel).
+runs its own (its fuzzy leaves in one sweep launch per field and kernel,
+its regex leaves one DFA walk, kernel B8, per field and matrix). Regex
+leaves and leaves that ask for snippets resolve like any other leaf.
+
+:func:`search_to_result_with_doc` reads a result's documents back
+(``to_documents``, ``search_to_result_with_doc``, ``:923-963``): with
+``select``, each hit's fields are rebuilt from the index's stores
+(:func:`.read_document.read_data`); without, the whole document is read
+from the document store and highlighted for ``why_found_terms``.
 """
 
 from __future__ import annotations
 
+import json
 import time
+from typing import List
 
 import numpy as np
 import torch
@@ -44,9 +54,11 @@ from .boost import (
 )
 from .facet import get_facet
 from .field_search import get_term_ids_in_field, leaf_field, prefetch_fuzzy_matches
-from .result import Hit, SearchResult
+from .highlight import highlight_on_original_document
+from .read_document import read_data
+from .result import DocWithHit, Hit, SearchResult, SearchResultWithDoc
 
-__all__ = ["search"]
+__all__ = ["search", "search_to_result_with_doc", "to_documents"]
 
 SEARCH, OR, AND = SearchRequest.SEARCH, SearchRequest.OR, SearchRequest.AND
 _DISTINCT_MIN = float(np.float32(1e-5))  # a union counts a term whose maximum reaches this
@@ -203,9 +215,38 @@ def search(request, index, dense_only: bool = False) -> SearchResult:
     ``search_batch([request], index)[0]``; the rest, and every request when
     ``dense_only`` is set, by the dense executor. Shapes outside the port
     raise ``NotImplementedError`` naming their ROADMAP item (``boost_term``,
-    ``text_locality``, ``why_found``, ``explain`` and ``suggest``: A13;
-    regex leaves: A8; leaf snippets: A9)."""
+    ``text_locality``, ``why_found``, ``explain`` and ``suggest``: A13)."""
     start = time.time_ns()
     if batch._plan(request, index)[0] != "executor" and not dense_only:
         return batch.search_batch([request], index)[0]
     return _execute(request, index, start)
+
+
+def to_documents(index, hits: List[Hit], select, result: SearchResult) -> List[DocWithHit]:
+    """Each hit with its document (``to_documents``, ``:923``; reference
+    src/search.rs:65-102): the ``select`` fields rebuilt from the index, or
+    the whole stored document, highlighted for the result's
+    ``why_found_terms``."""
+    tokens_set = {path: set(terms) for path, terms in result.why_found_terms.items()}
+    docs = []
+    for hit in hits:
+        if select is not None:
+            docs.append(DocWithHit(doc=read_data(index, hit.id, select), hit=hit,
+                                   explain=result.explain.get(hit.id),
+                                   why_found=result.why_found_info.get(hit.id, {})))
+        else:
+            doc = json.loads(index.doc_loader.get_doc(hit.id))
+            why = highlight_on_original_document(index, doc, tokens_set)
+            docs.append(DocWithHit(doc=doc, hit=hit, explain=result.explain.get(hit.id), why_found=why))
+    return docs
+
+
+def search_to_result_with_doc(index, result: SearchResult, select=None) -> SearchResultWithDoc:
+    """A result with its hits' documents (``search_to_result_with_doc``,
+    ``:952``; reference search::to_search_result, src/search.rs:104-111)."""
+    return SearchResultWithDoc(
+        data=to_documents(index, result.data, select, result),
+        num_hits=result.num_hits,
+        facets=result.facets,
+        execution_time_ns=result.execution_time_ns,
+    )

@@ -1,21 +1,32 @@
-"""Field-level term matching for exact, fuzzy and ``starts_with`` leaves.
+"""Field-level term matching for exact, fuzzy, ``starts_with`` and regex
+leaves, and a field's snippet search.
 
 Counterpart of ``veloci_tpu/search/field_search.py`` (``:49-117`` scoring and
 match post-processing, ``:120-401`` the batched fuzzy prefetch and the
-device match, ``:404-547`` ``get_term_ids_in_field``, ``:605-625`` the
-token-value boost), for leaves of one term without regex: exact terms,
-prefix ranges (``starts_with`` at distance 0), and fuzzy terms at any
-distance, with or without ``starts_with``.
+device match, ``:404-547`` ``get_term_ids_in_field``, ``:550-602`` the
+regex match, ``:605-625`` the token-value boost, ``:629-709``
+``resolve_token_hits_to_text_id`` and ``highlight_field``): exact terms,
+prefix ranges (``starts_with`` at distance 0), fuzzy terms at any distance,
+with or without ``starts_with``, and regex terms.
+
+A regex leaf's answer is the reference's host ``re`` scan (``:600-602``):
+the terms that ``re.fullmatch``, or ``re.match`` for ``starts_with``, the
+pattern, with ``IGNORECASE`` unless ``ignore_case`` is false. Kernel B8
+(:func:`..ops.regex_dfa.regex_match`) prefilters every row of the field's
+sweep matrix and long terms with the pattern's case-folded DFA; the rows
+the DFA may misjudge join the candidates (:func:`_regex_candidates`), and
+every candidate is checked with ``re``.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from ..create import BOOST_VALID_TO_VALUE, TEXTINDEX, TOKEN_VALUES
+from ..create import BOOST_VALID_TO_VALUE, TEXTINDEX, TOKEN_VALUES, TOKENS_TO_TEXT_ID
 from ..indices import MAX_TERM_CHARS
 from ..ops.levenshtein import (
     MAX_QUERY_CHARS,
@@ -25,18 +36,26 @@ from ..ops.levenshtein import (
     levenshtein_rows,
     select_matches,
 )
-from .boost import apply_boost_scalar
 from ..ops.levenshtein_sweep import (
     levenshtein_select_banded,
     levenshtein_sweep_banded_batch,
     levenshtein_sweep_full_batch,
 )
+from ..ops.regex_dfa import compile_dfa, regex_match
+from ..persistence import FOLD_SPECIAL, LONG_WIDTH, NONASCII
+from ..query.request import DEFAULT_SNIPPET_INFO
+from ..utils import normalize_text
+from .boost import apply_boost_scalar
+from .highlight import highlight_document
+from .result import FieldSearchResult
 
 __all__ = [
     "get_default_score_for_distance",
     "prefetch_fuzzy_matches",
     "get_term_ids_in_field",
+    "highlight_field",
     "match_term_ids",
+    "resolve_token_hits_to_text_id",
     "leaf_field",
     "clamped_distance",
 ]
@@ -232,6 +251,149 @@ def _host_matches(dictionary, lower_term, distance, starts_with):
     return cand[keep].astype(np.int64), dist[keep].astype(np.int64), is_p[cand][keep]
 
 
+def _dfa_escapes(pattern: str) -> Tuple[bool, bool]:
+    """``(reads_like_re, shorthand)`` for a pattern that ``re`` compiled.
+
+    ``reads_like_re``: :func:`..ops.regex_dfa.compile_dfa` reads each of
+    the pattern's escapes as ``re`` does: ``\\d``, ``\\w``, ``\\s`` anywhere,
+    ``\\D``, ``\\W``, ``\\S`` outside a class, and an escaped char that is
+    not an ASCII letter or digit. Its parser reads any other escaped letter
+    or digit as that char, where ``re`` reads a control char (``\\t``), a code
+    point (``\\x41``, ``\\u00e9``), a backreference (``\\1``), an anchor
+    (``\\A``, ``\\Z``), or, in a class, a complemented shorthand (``[\\W]``).
+    ``shorthand``: the pattern has ``\\d``, ``\\w`` or ``\\s``, which ``re``
+    extends past ASCII."""
+    i, in_class, first, shorthand = 0, False, False, False
+    while i < len(pattern):
+        c = pattern[i]
+        if c == "\\":
+            e = pattern[i + 1 : i + 2]
+            if e.isascii() and e.isalnum() and e not in ("dws" if in_class else "dwsDWS"):
+                return False, shorthand
+            shorthand = shorthand or e in ("d", "w", "s")
+            i, first = i + 2, False
+            continue
+        if in_class:
+            in_class = not (c == "]" and not first)
+            first = False
+        elif c == "[":
+            in_class = first = True
+            if pattern[i + 1 : i + 2] == "^":
+                i += 1
+        i += 1
+    return True, shorthand
+
+
+def _regex_candidates(index, field: str, dfa, shorthand: bool, prefix: bool) -> np.ndarray:
+    """The field's term ids that may match: every row kernel B8 accepts,
+    over the sweep matrix (rows mapped through its ``sweep_ids``, never
+    taken as term ids) and over the long terms' codes, and the rows the
+    DFA may misjudge (:func:`..persistence.regex_flags`): FOLD_SPECIAL
+    rows always, NONASCII rows for a pattern with ``\\d``, ``\\w`` or
+    ``\\s``, long terms past ``LONG_WIDTH`` chars, and the terms in no row.
+    Sorted, unique."""
+    rr = index.regex_rows[field]
+    force = FOLD_SPECIAL | (NONASCII if shorthand else 0)
+    sweep, long = index.fields[field], index.long_terms[field]
+    walks = []
+    if sweep.lengths.shape[0]:
+        walks.append((regex_match(sweep.chars_t, sweep.lengths, dfa, prefix),
+                      rr.sweep_flags, np.zeros(len(rr.sweep_flags), bool), rr.sweep_ids))
+    if len(long.ids):
+        walks.append((regex_match(long.codes.T, long.lengths, dfa, prefix),
+                      rr.long_flags, long.host_lengths > LONG_WIDTH, long.ids))
+    parts = [rr.unswept]
+    for hit, flags, past, ids in walks:
+        parts.append(ids[np.flatnonzero(hit.cpu().numpy() | ((flags & force) != 0) | past)])
+    return np.unique(np.concatenate(parts).astype(np.int64))
+
+
+def _match_regex(index, part) -> np.ndarray:
+    """A regex leaf's matched term ids, ascending (``_match_regex``,
+    ``:550-602``, with the answer of its host scan). The pattern is the
+    term when ``re`` compiles it, else the escaped term; its DFA is
+    compiled from that same pattern. A pattern outside ASCII, or one that
+    :func:`..ops.regex_dfa.compile_dfa` does not read as ``re`` does or
+    refuses, scans the dictionary with ``re`` on the host. Each outcome is
+    counted on ``index.path_counts`` ("regex_dfa", "regex_host_scan")."""
+    field = leaf_field(part)
+    terms = index.get_dictionary(field).terms
+    term = part.terms[0]
+    flags = re.IGNORECASE if (part.ignore_case if part.ignore_case is not None else True) else 0
+    try:
+        pattern = re.compile(term, flags)
+    except re.error:
+        pattern = re.compile(re.escape(term), flags)
+    fn = pattern.match if part.starts_with else pattern.fullmatch
+    dfa = None
+    if pattern.pattern.isascii():
+        reads_like_re, shorthand = _dfa_escapes(pattern.pattern)
+        if reads_like_re:
+            dfa = compile_dfa(pattern.pattern, ignore_case=True)  # folded: a superset
+    if dfa is None:
+        index.path_counts["regex_host_scan"] += 1
+        return np.array([i for i, t in enumerate(terms) if fn(t)], dtype=np.int64)
+    index.path_counts["regex_dfa"] += 1
+    cand = _regex_candidates(index, field, dfa, shorthand, bool(part.starts_with))
+    return np.array([i for i in cand.tolist() if fn(terms[i])], dtype=np.int64)
+
+
+def _regex_distances(index, field: str, matched: np.ndarray, lower_term: str):
+    """Per matched term of a regex leaf, ``(distance, starts)`` as the
+    reference's exact path takes them (``:500-510``): ``starts`` when the
+    lowercased term starts with the lowercased pattern, and then the
+    distance ``|term| - |pattern|``, else ``levenshtein_distance_host``.
+
+    For a pattern of at most 32 chars, the terms in the sweep matrix take
+    one full-width launch (B3) with the pattern as the query, over their
+    rows gathered (when no char of the pattern is U+FFFD or beyond: the
+    matrix stores code points past 0xFFFF as U+FFFD), and the long terms
+    one batched distance pass over their exact codes
+    (:func:`..ops.levenshtein.levenshtein_rows`, 255 from 255 chars on, as
+    the host distance caps). The rest take the vectorised host distance."""
+    dictionary = index.get_dictionary(field)
+    lengths = dictionary.char_lengths()[matched].astype(np.int64) - len(lower_term)
+    dist = np.empty(len(matched), dtype=np.int64)
+    starts = np.zeros(len(matched), dtype=bool)
+    done = np.zeros(len(matched), dtype=bool)
+    query, qlen = encode_query(lower_term)
+    if qlen == len(lower_term):
+        sweep, long = index.fields[field], index.long_terms[field]
+        dev = sweep.chars_t.device
+        rows = index.regex_rows[field].row_of[matched]
+        swept = rows >= 0
+        if swept.any() and all(ord(c) < 0xFFFD for c in lower_term):
+            r = torch.from_numpy(rows[swept]).to(dev)
+            # the gather on the int16 view: CUDA has no uint16 index kernel
+            chars = sweep.chars_t.view(torch.int16)[:, r].contiguous().view(torch.uint16)
+            d, _pd, isp = levenshtein_sweep_full_batch(
+                chars, sweep.lengths[r].contiguous(),
+                torch.from_numpy(query[None]).to(dev), torch.tensor([qlen], dtype=torch.int32, device=dev))
+            isp = isp[0].cpu().numpy()
+            starts[swept], done[swept] = isp, True
+            dist[swept] = np.where(isp, lengths[swept], d[0].cpu().numpy())
+        pos = np.searchsorted(long.ids, matched)
+        in_long = pos < len(long.ids)
+        in_long[in_long] = long.ids[pos[in_long]] == matched[in_long]
+        if in_long.any():
+            q32 = np.full((1, MAX_QUERY_CHARS), -1, dtype=np.int32)
+            q32[0, :qlen] = np.frombuffer(lower_term.encode("utf-32-le"), dtype=np.int32)
+            r = torch.from_numpy(pos[in_long]).to(dev)
+            d, _pd, isp = levenshtein_rows(
+                long.codes, long.lengths, torch.from_numpy(q32).to(dev),
+                torch.tensor([qlen], dtype=torch.int32, device=dev), r, torch.zeros_like(r))
+            isp = isp.cpu().numpy()
+            starts[in_long], done[in_long] = isp, True
+            dist[in_long] = np.where(isp, lengths[in_long], d.cpu().numpy())
+    rest = np.flatnonzero(~done)
+    if len(rest):
+        lows = [dictionary.terms[int(t)].lower() for t in matched[rest]]
+        is_p = np.fromiter((lo.startswith(lower_term) for lo in lows), dtype=bool, count=len(lows))
+        starts[rest] = is_p
+        dist[rest] = np.where(is_p, lengths[rest], levenshtein_distances_host(lower_term, lows))
+    return dist, starts
+
+
 def match_term_ids(index, part, fuzzy_matches):
     """The leaf's matched term ids, ascending, with the fuzzy match's
     distances and prefix flags (None unless the leaf is fuzzy):
@@ -244,6 +406,8 @@ def match_term_ids(index, part, fuzzy_matches):
     range; fuzzy matches are re-verified against the original case when
     ``ignore_case`` is false, on the FULL distance even for ``starts_with``
     (:469-481)."""
+    if part.is_regex:
+        return _match_regex(index, part), None, None
     dictionary = index.get_dictionary(leaf_field(part))
     term = part.terms[0]
     lower_term = term.lower()
@@ -298,6 +462,11 @@ def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.nd
     if aligned_dists is not None:
         distances = aligned_dists
         prefix_matches = aligned_prefixes  # distance != 0: prefixes count
+    elif part.is_regex:
+        # the exact path's distances (:500-510); prefixes count for
+        # starts_with or a distance (:487)
+        distances, prefix_matches = _regex_distances(index, leaf_field(part), matched, lower_term)
+        prefix_matches &= starts_with or clamped_distance(part) != 0
     elif starts_with:
         # prefix range: every term starts with the query, so its distance is
         # |candidate| - |query| (:491-498)
@@ -326,6 +495,85 @@ def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.nd
     if part.token_value is not None:
         scores = _apply_token_value_boost(index, part.token_value, matched, scores)
     return matched, scores
+
+
+def _leaf_fuzzy(index, part):
+    """:func:`prefetch_fuzzy_matches` for one leaf alone."""
+    d = clamped_distance(part)
+    if d == 0 or part.is_regex:
+        return {}
+    return prefetch_fuzzy_matches(index, [(leaf_field(part), part.terms[0].lower(), d, bool(part.starts_with))])
+
+
+def resolve_token_hits_to_text_id(index, request, result, add_snippets: bool = False):
+    """Token-level hits -> text-id-level hits, optionally with snippets
+    (``:629-688``; reference search_field.rs:519-608): each matched token
+    maps to the text ids containing it via ``.tokens_to_text_id``; per
+    text id the token score of the largest magnitude wins; with
+    ``add_snippets`` the text is rebuilt from its token ids and
+    highlighted."""
+    path = result.path
+    if not index.tokenize_enabled(path):
+        return result
+    tta = index.key_value_stores.get(path + TOKENS_TO_TEXT_ID)
+    if tta is None:
+        return result
+
+    token_hits = []  # (text_id, score, token_id)
+    for tid, score in zip(result.term_ids, result.term_scores):
+        for p in tta.get_values(int(tid)):
+            token_hits.append((int(p), float(score), int(tid)))
+    token_hits.sort(key=lambda el: el[0])
+
+    if token_hits:
+        new_ids = []
+        new_scores = []
+        i = 0
+        while i < len(token_hits):
+            j = i
+            group_tokens = []
+            best = None
+            text_id = token_hits[i][0]
+            while j < len(token_hits) and token_hits[j][0] == text_id:
+                _t, sc, tok = token_hits[j]
+                if best is None or abs(sc) > abs(best):
+                    best = sc
+                group_tokens.append(tok)
+                j += 1
+            new_ids.append(text_id)
+            new_scores.append(best)
+            if add_snippets:
+                snippet_info = request.snippet_info or DEFAULT_SNIPPET_INFO
+                highlighted = highlight_document(index, path, text_id, group_tokens, snippet_info)
+                if highlighted is not None:
+                    result.highlight[text_id] = highlighted
+            i = j
+        result.term_ids = np.asarray(new_ids, dtype=np.int64)
+        result.term_scores = np.asarray(new_scores, dtype=_F32)
+    return result
+
+
+def highlight_field(index, request):
+    """A field's snippet search (``:691-709``, reference
+    search_field.rs:233-245 ``highlight``): the leaf's terms normalised,
+    matched and resolved to the texts that hold them, each text
+    highlighted -> ``[(snippet, score, text id)]`` by score, then ``skip``
+    and ``top``."""
+    request.terms = [normalize_text(t) for t in request.terms]
+    term_ids, term_scores = get_term_ids_in_field(index, request, _leaf_fuzzy(index, request))
+    path = request.path if request.path.endswith(TEXTINDEX) else request.path + TEXTINDEX
+    result = FieldSearchResult(path=path, request=request, term_ids=term_ids, term_scores=term_scores)
+    resolve_token_hits_to_text_id(index, request, result, add_snippets=True)
+    out = []
+    for tid, score in zip(result.term_ids, result.term_scores):
+        text = result.highlight.get(int(tid))
+        if text is not None:
+            out.append((text, float(score), int(tid)))
+    out.sort(key=lambda el: -el[1])
+    out = out[request.skip or 0 :]
+    if request.top is not None:
+        out = out[: request.top]
+    return out
 
 
 def _apply_token_value_boost(index, tv, term_ids, scores) -> np.ndarray:
