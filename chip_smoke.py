@@ -26,7 +26,9 @@ Phases (any failure is an exception and a non-zero exit):
              operations over the card's INT32 rate.
 4. slice  -- a jmdict-shaped 200,000-document corpus (the generator of
              bench.py's build_corpus, seed 1234) is built with the port's
-             builder and native indexer, saved, read back and uploaded.
+             index build and native indexer, saved, read back and uploaded;
+             ``TorchIndex.warmup`` runs once (its seconds and breakdown
+             printed).
              Three main paths through ``search_batch``, then one through
              ``search`` (below, ``executor``): single leaves
              (batches of 256 exact, ~1 and ~2 requests, and single fuzzy
@@ -73,6 +75,24 @@ Phases (any failure is an exception and a non-zero exit):
              B7; the host-scan count must be 0. p50 and p99 of a request
              and of its document read, host clock. Every answer and its
              documents are checked against the CPU plain path.
+             The sixth main path, ``features``, on the same index: 256
+             lone ``boost_term`` requests through ``search`` (seed 9: a
+             title word, every other at ``~1``, with three boost_term
+             parts, a title word at boost 2.0, a title word at ``~1`` at
+             boost 3.0 and a cat value at boost 1.5; the term-boost
+             cache's hits and misses are printed), 256 lone ``text_locality`` requests (seed 10: an OR
+             of 2-3 title words), one ``search_batch`` of 256 generator
+             requests with ``why_found`` (seed 11: 2-3 words, every other
+             with ``select`` title and cat; each top 10 read back), and
+             one ``suggest_batch`` of 256 prefixes of 2-5 chars on title
+             (seed 12: two in three canonical requests at distance 0, the
+             vectorised path; one in three from ``suggest_query`` at
+             distance 1, the general path). It must launch B7, the fused
+             select, the banded batch sweep and the full-width sweep
+             (the suggest parts at ``~1`` match term prefixes). p50 and
+             p99 of each mix and of the why_found document reads; every
+             answer, its why_found metadata, its documents and every
+             suggestion list are checked against the CPU plain path.
 5. dense   -- kernel B7 (``csrc/dense_resolve.cu``), its direct path and
              its keys path, each against its plain version on the card,
              bit-equal, at the main path's largest multi-term leaf (its
@@ -111,11 +131,16 @@ Phases (any failure is an exception and a non-zero exit):
              (profiler events, in phase 7), its plain twin, and its bound: 64 + 4
              bytes a term read and 12 a match written, 3 operations a band
              cell for the terms that pass the length test.
+   B10     -- the ``boost_term`` factor (plain PyTorch) at the boost_term
+             mix's first request, its parts' anchors cached: ms (CUDA
+             events) beside its bound (8 bytes an anchor, 4 a document's
+             factor); its device time in phase 8.
 8. profile -- every profiler measurement, after every timing above (once
              the profiler has run, launches in the process take longer):
              B7's, B8's and the fused select's device times; one batch of
-             each mix (32 lone requests of each executor mix and of the
-             regex mix) under torch.profiler: the device's busy share of the
+             each mix (32 lone requests of each executor mix, of the
+             regex mix and of the lone feature mixes; the why_found and
+             the suggest batch) under torch.profiler: the device's busy share of the
              wall time and its largest kernels; and the single-query banded
              launch (B2's old entry) timed by its kernel's own device
              events, beside its CUDA-event time.
@@ -150,6 +175,8 @@ PROFILED_EXECUTOR_REQUESTS = 32
 REGEX_REQUESTS = 256  # lone code-search requests of the regex path
 REGEX_SELECT = ["title", "cat"]  # the select of half of them; the rest read whole documents
 REGEX_SYNTH_TERMS = 1_000_000
+FEATURE_REQUESTS = 256  # requests per mix of the features path
+FEATURE_SELECT = ["title", "cat"]  # the select of half the why_found requests
 DENSE_SYNTH_DOCS = 6_000_000  # B7's synthetic plane: past the reference's 2^21 sort capacity
 DENSE_SYNTH_ROWS = 1 << 23
 DENSE_SYNTH_TERMS = 64
@@ -312,7 +339,8 @@ def request_mixes(vocab, probs, rng, fields):
 
 # the lone-request mixes: each request alone through vt.search, with or
 # without dense_only (the executor mixes, and the regex mix)
-DENSE_ONLY = {"deep_tree": False, "multi_term": False, "generic_dense": True, "regex": False}
+DENSE_ONLY = {"deep_tree": False, "multi_term": False, "generic_dense": True, "regex": False,
+              "boost_term": False, "text_locality": False}
 
 
 def executor_mixes(vocab, probs, generic_batch):
@@ -377,6 +405,78 @@ def regex_mix(vocab, probs):
             query += " " + str(rrng.choice(vocab, p=probs))
         out.append({"regex": query, "select": REGEX_SELECT if i % 2 else None})
     return out
+
+
+# the features path's mixes: boost_term and text_locality lone requests
+# through vt.search (the executor), why_found one search_batch, suggest one
+# suggest_batch
+FEATURE_LONE = ("boost_term", "text_locality")
+
+
+def feature_mixes(vocab, probs):
+    """FEATURE_REQUESTS requests per mix of the ``features`` path, zipf words.
+    ``boost_term`` (seed 9): a title leaf of one word, every other at
+    distance 1, with three ``boost_term`` parts: a title word at boost 2.0,
+    a title word at distance 1 at boost 3.0, and a ``cat`` value at boost
+    1.5. A part's matched ids resolve to anchors as text ids, so the title
+    words, which are tokens of the titles, boost no anchor, in both
+    packages; the ``cat`` part (a sixteenth of the documents) gives the
+    factor its device work. ``text_locality`` (seed 10): an
+    OR of 2-3 title words. ``why_found`` (seed 11): generator requests over
+    2-3 words, every other with ``select`` FEATURE_SELECT. ``suggest`` (seed
+    12): the first 2-5 chars of a word on title; two in three as the
+    canonical suggest request at distance 0 (a part without ``top``, the
+    vectorised prefix path), one in three through ``suggest_query`` at
+    distance 1 (the general path; the generator sets each part's ``top``,
+    which the vectorised path declines)."""
+    def leaf(w, **kw):
+        return {"search": dict({"terms": [str(w)], "path": "title"}, **kw)}
+
+    out = {}
+    brng = np.random.default_rng(9)
+    out["boost_term"] = []
+    for i in range(FEATURE_REQUESTS):
+        a, b, c = brng.choice(vocab, size=3, p=probs)
+        out["boost_term"].append({
+            "search_req": leaf(a, levenshtein_distance=1) if i % 2 else leaf(a),
+            "boost_term": [{"terms": [str(b)], "path": "title", "boost": 2.0},
+                           {"terms": [str(c)], "path": "title", "levenshtein_distance": 1, "boost": 3.0},
+                           {"terms": [f"c{brng.integers(16)}"], "path": "cat", "boost": 1.5}],
+            "top": 10})
+    trng = np.random.default_rng(10)
+    out["text_locality"] = [
+        {"search_req": {"or": {"queries": [leaf(w) for w in trng.choice(vocab, size=int(trng.integers(2, 4)),
+                                                                          p=probs)]}},
+         "text_locality": True, "top": 10}
+        for _ in range(FEATURE_REQUESTS)]
+    wrng = np.random.default_rng(11)
+    out["why_found"] = []
+    for i in range(FEATURE_REQUESTS):
+        words = wrng.choice(vocab, size=int(wrng.integers(2, 4)), p=probs)
+        params = {"search_term": " ".join(str(w) for w in words), "why_found": True}
+        if i % 2:
+            params["select"] = ",".join(FEATURE_SELECT)
+        out["why_found"].append({"generator": params})
+    srng = np.random.default_rng(12)
+    out["suggest"] = []
+    for i in range(FEATURE_REQUESTS):
+        w = str(srng.choice(vocab, p=probs))
+        prefix = w[: int(srng.integers(2, 6))]
+        if i % 3 == 2:
+            out["suggest"].append({"suggest_query": prefix, "levenshtein": 1})
+        else:
+            out["suggest"].append({"suggest": [{"terms": [prefix], "path": "title", "starts_with": True}],
+                                   "top": 10})
+    return out
+
+
+def check_suggestions(res, top=10):
+    """At most ``top`` (text, score, term id), texts distinct, scores finite,
+    positive and descending, equal scores text descending."""
+    assert len(res) <= top and len({t for t, _s, _i in res}) == len(res), res
+    for (t0, s0, _i0), (t1, s1, _i1) in zip(res, res[1:]):
+        assert s0 > s1 or (s0 == s1 and t0 > t1), res
+    assert all(np.isfinite(s) and s > 0 and i >= 0 for _t, s, i in res), res
 
 
 def regex_leaf_keys(req):
@@ -630,6 +730,29 @@ def dense_bound(args):
     one multiply a row is far below the card's f32 rate."""
     t, total_rows, num_docs = args[2].shape[0], args[5], args[6]
     return (8 * total_rows + 4 * num_docs + 32 * t) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def term_boost_phase(boost, index, parts, report):
+    """B10, the ``boost_term`` factor (plain PyTorch,
+    ``search/boost.term_boost_factor_device``), at one request of the
+    ``boost_term`` mix, its parts' anchors cached as the mix finds most of
+    them: the factor's ms (CUDA events) beside its bound, 8 bytes an anchor
+    read and 4 a document's factor written over 3.35 TB/s (a bincount and a
+    gather: no operation rate binds). Returns the call, for its device time
+    in the profile phase."""
+    part_anchors = boost.term_boost_anchors(index, parts, {})
+
+    def call():
+        return boost.term_boost_factor_device(index, parts, part_anchors)
+
+    call()
+    anchors = sum(len(a) for a, _most in part_anchors)
+    bound = (8 * anchors + 4 * index.num_docs) / HBM_BYTES_PER_S * 1e3
+    row = dict(parts=len(parts), anchors=anchors, num_docs=index.num_docs, ms=time_ms(call), bound_ms=bound)
+    report["term_boost"] = row
+    log(f"B10 term-boost factor at a boost_term request ({len(parts)} parts, {anchors} anchors, "
+        f"{index.num_docs} docs): {row['ms']:.4f} ms (CUDA events), bound {bound:.6f} ms (bytes)")
+    return call
 
 
 def dense_phase(postings, search_step, shapes, report):
@@ -1003,8 +1126,10 @@ def check_result(res, req):
 
 
 def result_key(res):
+    if isinstance(res, list):  # suggestions
+        return res
     return (res.num_hits, [(h.id, np.float32(h.score).view(np.int32).item()) for h in res.data],
-            res.facets)
+            res.facets, res.why_found_terms, res.why_found_info)
 
 
 def record_full_launches(field_search, index, calls):
@@ -1087,7 +1212,7 @@ def main() -> None:
     import veloci_tpu_torch as vt
     from veloci_tpu_torch.ops import _build
     from veloci_tpu_torch.ops import levenshtein, levenshtein_sweep, postings, regex_dfa, search_step
-    from veloci_tpu_torch.search import executor, field_search
+    from veloci_tpu_torch.search import boost, executor, field_search
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1143,6 +1268,10 @@ def main() -> None:
                            load_upload_s=load_upload_s,
                            title_sweep_rows=int(title.chars_t.shape[1]),
                            postings=int(index.packed.shape[0]))
+    warmup_s = index.warmup()
+    log(f"warmup: {warmup_s:.3f} s; breakdown (s): "
+        f"{ {k: round(v, 3) for k, v in index.last_warmup_breakdown.items()} }")
+    report["slice"].update(warmup_s=warmup_s, warmup_breakdown=dict(index.last_warmup_breakdown))
 
     # ---- kernel phase
     synth_rng = np.random.default_rng(99)
@@ -1175,12 +1304,16 @@ def main() -> None:
 
     ex_mixes = executor_mixes(vocab, probs, mixes["generic"][0])
     regex_specs = regex_mix(vocab, probs)
+    feat_mixes = feature_mixes(vocab, probs)
 
     def make(spec, idx):
         """A request dict, or a query string or generator parameters through
         the query generator."""
         if isinstance(spec, str):
             return vt.search_query(idx, vt.SearchQueryGeneratorParameters(search_term=spec))
+        if "suggest_query" in spec:
+            return vt.suggest_query(spec["suggest_query"], idx, levenshtein=spec["levenshtein"],
+                                    fields=["title"])
         if "regex" in spec:
             req = vt.search_query(idx, vt.SearchQueryGeneratorParameters(search_term=spec["regex"]))
             req.select = spec["select"]
@@ -1191,9 +1324,12 @@ def main() -> None:
 
     def answer(name, reqs, idx):
         """A batched mix's batch through search_batch; an executor mix's
-        requests one by one through search."""
+        requests one by one through search; the suggest mix's through
+        suggest_batch."""
         if name in DENSE_ONLY:
             return [vt.search(r, idx, dense_only=DENSE_ONLY[name]) for r in reqs]
+        if name == "suggest":
+            return vt.suggest_batch(idx, reqs)
         return vt.search_batch(reqs, idx)
 
     for name, batches in mixes.items():  # warm-up: first-touch allocations
@@ -1202,6 +1338,8 @@ def main() -> None:
     for name, reqs in ex_mixes.items():  # the executor's first requests, timed again below
         answer(name, [make(d, index) for d in reqs[:4]], index)
     answer("regex", [make(d, index) for d in regex_specs[:4]], index)
+    for name, reqs in feat_mixes.items():  # the boost_term parts of these 4 are cached from here on
+        answer(name, [make(d, index) for d in reqs[:4]], index)
     torch.cuda.synchronize()
 
     gc_full_ms = []  # full (generation 2) garbage collections during the main path
@@ -1223,6 +1361,8 @@ def main() -> None:
     requests_of = dict(mixes, single_fuzzy_d2=[[d] for d in singles])
     requests_of.update({name: [[d] for d in reqs] for name, reqs in ex_mixes.items()})
     requests_of["regex"] = [[d] for d in regex_specs]
+    requests_of.update({name: [[d] for d in feat_mixes[name]] for name in FEATURE_LONE})
+    requests_of.update({name: [feat_mixes[name]] for name in ("why_found", "suggest")})
     # the main paths, each with the kernels it must launch: the single-leaf
     # requests, then the query-string trees
     paths = (
@@ -1234,6 +1374,9 @@ def main() -> None:
          ("levenshtein_sweep_banded_batch", "levenshtein_sweep_full_batch")),
         ("executor", tuple(ex_mixes), ("dense_resolve", "levenshtein_select_banded")),
         ("regex", ("regex",), ("regex_match", "dense_resolve")),
+        ("features", (*FEATURE_LONE, "why_found", "suggest"),
+         ("dense_resolve", "levenshtein_sweep_banded_batch", "levenshtein_select_banded",
+          "levenshtein_sweep_full_batch")),
     )
     answers = {}
     lat = {}
@@ -1244,6 +1387,7 @@ def main() -> None:
     dense_calls = []  # the multi_term mix's leaves
     regex_dense_calls = []  # the regex mix's leaves
     regex_docs, doc_lat = [], []  # the regex mix's documents, and each read's seconds
+    wf_docs, wf_doc_lat = [], []  # the why_found mix's documents, and each request's read seconds
     expected_b8 = 0  # B8 launches the regex mix must make: a regex leaf, each matrix of its field
     select_calls = []  # the fused selects of the lone ~2 and executor mixes
     gc.callbacks.append(on_gc)
@@ -1276,6 +1420,13 @@ def main() -> None:
                         for field, _key in regex_leaf_keys(q):
                             expected_b8 += int(index.fields[field].lengths.shape[0] > 0)
                             expected_b8 += int(len(index.long_terms[field].ids) > 0)
+                if name == "why_found":
+                    docs = []
+                    for r, q in zip(res, reqs):
+                        t0 = time.perf_counter()
+                        docs.append(vt.search_to_result_with_doc(index, r, q.select))
+                        wf_doc_lat.append(time.perf_counter() - t0)
+                    wf_docs.append(docs)
                 rows_per_batch[name].append(sum(index.gathered_rows.values()) - rows0)
                 answers[name].append(res)
             if name == "query_string":
@@ -1304,6 +1455,14 @@ def main() -> None:
     if host_scans or b8_launches != expected_b8 or not expected_b8:
         raise AssertionError("the regex path did not launch B8 for every regex leaf on every field, "
                              "or scanned a dictionary on the host")
+    feat = path_routes["features"]
+    log(f"features path: term-boost cache {feat.get('term_boost_cache_hit', 0)} hits, "
+        f"{feat.get('term_boost_cache_miss', 0)} misses (the warm-up's 4 requests cached their parts); "
+        f"suggest {feat.get('suggest_fast', 0)} on the vectorised path, "
+        f"{feat.get('suggest_general', 0)} on the general path; executor {feat.get('executor', 0)}")
+    if feat.get("executor", 0) < 2 * FEATURE_REQUESTS or not feat.get("suggest_fast") \
+            or not feat.get("suggest_general"):
+        raise AssertionError("the features path did not take the executor and both suggest paths")
     gen = path_launches["generic"]
     log(f"generic mix launches: B1 (banded, batch) {gen['levenshtein_sweep_banded_batch']}, "
         f"B3 (full-width) {gen['levenshtein_sweep_full_batch']}")
@@ -1330,6 +1489,10 @@ def main() -> None:
         for batch, res in zip(requests_of[name], results):
             assert len(res) == len(batch)
             for r, d in zip(res, batch):
+                if name == "suggest":
+                    check_suggestions(r)
+                    hits += bool(r)
+                    continue
                 check_result(r, d)
                 hits += bool(r.data)
     if hits < len(singles):
@@ -1350,8 +1513,8 @@ def main() -> None:
             for a, b, d in zip(res, cpu, batch):
                 if result_key(a) != result_key(b):
                     raise AssertionError(f"GPU != CPU plain path for {d}")
-            if name == "regex":
-                for docs, b, q in zip(regex_docs[k], cpu, cpu_reqs):
+            if name in ("regex", "why_found"):
+                for docs, b, q in zip((regex_docs if name == "regex" else wf_docs)[k], cpu, cpu_reqs):
                     cpu_docs = vt.search_to_result_with_doc(cpu_index, b, q.select)
                     if json.dumps([d.to_dict() for d in docs.data]) != json.dumps(
                             [d.to_dict() for d in cpu_docs.data]):
@@ -1362,7 +1525,7 @@ def main() -> None:
         f"requests identical to the CPU plain path")
 
     for name, samples in lat.items():
-        n_req = 1 if name.startswith("single") or name in DENSE_ONLY else BATCH
+        n_req = 1 if name.startswith("single") or name in DENSE_ONLY else len(requests_of[name][0])
         ms = np.array(samples) * 1e3
         row = dict(batch=n_req, batches=len(ms), p50_ms=float(np.percentile(ms, 50)),
                    p99_ms=float(np.percentile(ms, 99)),
@@ -1376,6 +1539,12 @@ def main() -> None:
         samples_ms=ms.tolist(), host_scans=host_scans, b8_launches=b8_launches)
     log(f"slice regex document reads (top 10, half select {REGEX_SELECT}, half whole): x {len(ms)}: "
         f"p50 {np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms")
+    ms = np.array(wf_doc_lat) * 1e3
+    report["slice"]["why_found_documents"] = dict(
+        reads=len(ms), p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+        samples_ms=ms.tolist())
+    log(f"slice why_found document reads (top 10, half select {FEATURE_SELECT}, half whole): "
+        f"x {len(ms)}: p50 {np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms")
 
     # ---- kernel B7 at the main path's largest multi-term leaf and on a 6M-document plane
     def leaf_rows(call):
@@ -1402,6 +1571,10 @@ def main() -> None:
     regex_rows, regex_timed = regex_phase(regex_dfa, index, first_of_kind, report)
     torch.cuda.empty_cache()
 
+    # ---- B10 at the boost_term mix's first request
+    term_boost_call = term_boost_phase(boost, index,
+                                       make(feat_mixes["boost_term"][0], index).boost_term, report)
+
     # ---- the fused select (B2) on the main path's specs and at title x 1
     select_row, select_args = select_phase(levenshtein_sweep, levenshtein, field_search, select_calls,
                                            title, title_words, rng, report)
@@ -1410,6 +1583,8 @@ def main() -> None:
     # ---- profiler measurements, after every CUDA-event and host-clock timing
     dense_device_phase(postings, dense_rows, dense_args)
     del dense_args
+    report["term_boost"]["device_ms"] = sum(device_ms(term_boost_call).values())
+    log(f"B10 term-boost factor: device time (profiler) {report['term_boost']['device_ms']:.4f} ms")
     for name, (chars_t, lens, dfa) in regex_timed.items():
         regex_rows[name]["kernel_alone_ms"] = kernel_only_ms(
             lambda: regex_dfa.regex_match(chars_t, lens, dfa, False), "regex_walk_kernel")
@@ -1422,11 +1597,17 @@ def main() -> None:
         f"{select_row['kernel_ms']:.4f} ms")
 
     profiled = {name: ([make(d, index) for d in batches[1]], lambda reqs: vt.search_batch(reqs, index))
-                for name, batches in requests_of.items() if name not in DENSE_ONLY}
+                for name, batches in requests_of.items()
+                if name not in DENSE_ONLY and name not in ("why_found", "suggest")}
     profiled.update({
         name: ([make(d, index) for d in reqs[:PROFILED_EXECUTOR_REQUESTS]],
                lambda reqs, name=name: answer(name, reqs, index))
-        for name, reqs in (*ex_mixes.items(), ("regex", regex_specs))
+        for name, reqs in (*ex_mixes.items(), ("regex", regex_specs),
+                           *((n, feat_mixes[n]) for n in FEATURE_LONE))
+    })
+    profiled.update({  # the why_found batch and the suggest batch, whole
+        name: ([make(d, index) for d in feat_mixes[name]], lambda reqs, name=name: answer(name, reqs, index))
+        for name in ("why_found", "suggest")
     })
     profile_phase(profiled, report)
     enc, n_chars = levenshtein.encode_query(mutate(str(title_words[len(title_words) // 3]), 1, rng))

@@ -1,8 +1,10 @@
 """Port tests that need a CUDA device: the hand-written sweep kernels (banded
 and full-width, the fused lone-request select), the dense resolve (both
 its paths) and the regex DFA walk (B8) against their plain PyTorch versions
-on the card, and the slice (``search_batch`` and ``search``, regex leaves
-and document reads included) on the card against the same index on the
+on the card, the ``boost_term`` factor (B10) on the card against the CPU's,
+and the slice (``search_batch`` and ``search``, regex leaves, document
+reads, ``boost_term``, ``text_locality``, ``why_found``, suggest and
+``TorchIndex.warmup`` included) on the card against the same index on the
 CPU. Tolerance: exact equality (integer
 outputs; the same f32 products, maxima order-free, and sums taken in the
 same order, on both devices).
@@ -30,6 +32,8 @@ from veloci_tpu_torch import (
     search_batch,
     search_query,
     search_to_result_with_doc,
+    suggest_batch,
+    suggest_query,
 )
 from veloci_tpu_torch.ops.postings import (
     dense_fast_path,
@@ -538,3 +542,74 @@ def test_regex_search_and_documents_on_card(card):
             da, db = search_to_result_with_doc(on_card, a, select), search_to_result_with_doc(on_cpu, b, select)
             assert [d.doc for d in da.data] == [d.doc for d in db.data]
     assert regex_match.launches > before and not on_card.path_counts["regex_host_scan"]
+
+
+@pytest.mark.cuda
+def test_term_boost_factor_on_card_equals_cpu(card):
+    """B10 on the card: counts up to 40 at boosts whose powers the card's
+    ``powf`` may round otherwise; the factor equals the CPU's bit for bit."""
+    from collections import Counter
+    from types import SimpleNamespace
+
+    from veloci_tpu_torch.search.boost import resolve_part_anchors, term_boost_factor_device
+
+    rng = np.random.default_rng(31)
+    anchors = np.repeat(np.arange(41), np.arange(41))
+    parts = {("f", j): (rng.permutation(anchors) + 41 * j, b)
+             for j, b in enumerate((3.0, 5.0, 1.7, 0.3, 7.3, None))}
+    boost_terms = [SimpleNamespace(path="f", terms=["t"], boost=b, key=lambda k=k: k)
+                   for k, (_a, b) in parts.items()]
+
+    def factor(device):
+        index = SimpleNamespace(num_docs=41 * 6 + 3, device=torch.device(device), term_boost_cache={},
+                                path_counts=Counter(), key_value_stores={},
+                                is_anchor_identity_column=lambda _path: True)
+        anchors = [resolve_part_anchors(index, bt, parts[bt.key()][0]) for bt in boost_terms]
+        return term_boost_factor_device(index, boost_terms, anchors)
+
+    got, want = factor(card), factor("cpu")
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_features_on_card_equal_cpu(card):
+    """``boost_term``, ``text_locality`` and ``why_found`` requests through
+    ``search`` and ``search_batch``, their documents, and suggest requests,
+    on the card after ``warmup`` and on the CPU: identical answers."""
+    rng = np.random.default_rng(37)
+    vocab = [f"w{i:x}{'abcdefgh'[i % 8] * (1 + i % 7)}" for i in range(800)]
+    docs = "\n".join('{"title": "%s", "cat": "c%d"}' % (" ".join(rng.choice(vocab, size=5)), i % 16)
+                     for i in range(3000))
+    pers = Persistence.from_built(create_indices_from_str(docs, '["*GLOBAL*"]\nfeatures = ["All"]\n'))
+    on_cpu = TorchIndex.from_persistence(pers, "cpu")
+    on_card = TorchIndex.from_persistence(pers, card)
+    assert on_card.warmup() > 0 and on_card.last_warmup_breakdown["build_s"] >= 0
+
+    def leaf(t, **kw):
+        return {"search": dict({"terms": [t], "path": "title"}, **kw)}
+
+    dicts = [
+        {"search_req": leaf("w1bb", levenshtein_distance=1),
+         "boost_term": [{"terms": ["w2ccc"], "path": "title"},
+                        {"terms": ["w3dddd"], "path": "title", "levenshtein_distance": 1, "boost": 3.0}]},
+        {"search_req": {"or": {"queries": [leaf("w1bb"), leaf("w10"), leaf("w2ccc")]}}, "text_locality": True},
+        {"search_req": {"or": {"queries": [leaf("w1bb"), leaf("w10")]}}, "why_found": True,
+         "select": ["title", "cat"]},
+        {"search_req": leaf("w2ccc"), "why_found": True},
+    ]
+    for d in dicts:
+        for answer in (lambda r, ix: search(r, ix), lambda r, ix: search_batch([r], ix)[0]):
+            a, b = answer(Request.from_dict(d), on_card), answer(Request.from_dict(d), on_cpu)
+            assert a.num_hits == b.num_hits > 0, d
+            assert [(h.id, h.score) for h in a.data] == [(h.id, h.score) for h in b.data], d
+            assert (a.why_found_terms, a.why_found_info) == (b.why_found_terms, b.why_found_info), d
+            da = search_to_result_with_doc(on_card, a, d.get("select"))
+            db = search_to_result_with_doc(on_cpu, b, d.get("select"))
+            assert [x.to_dict() for x in da.data] == [x.to_dict() for x in db.data], d
+    sugg = [suggest_query(p, on_card, levenshtein=lev, fields=["title"])
+            for p, lev in (("w1", 0), ("w2c", 1), ("w3dd", 1))]
+    sugg.append(Request.from_dict({"suggest": [{"terms": ["w1b"], "path": "title", "starts_with": True}],
+                                   "top": 10}))
+    got = suggest_batch(on_card, sugg)
+    assert all(got) and got == suggest_batch(on_cpu, sugg)

@@ -16,9 +16,8 @@ the JAX package.
   the port built and on the reference's index directory loaded by the port.
 * ``highlight_field`` on ``tests/test_all.py``'s three highlight cases.
 * ``highlight_on_original_document`` and ``search_to_result_with_doc``'s
-  highlight on ``tests/test_why_found.py``'s ``highlight_*`` cases, given
-  the why-found term sets the reference's search gives (the port's
-  ``why_found`` is ROADMAP A13).
+  highlight on ``tests/test_why_found.py``'s ``highlight_*`` cases, with
+  the why-found term sets each package's search gives (found equal).
 * Requests with a snippet leaf through ``search``.
 
 Tolerance: exact everywhere: documents, snippets, ids, order, ``num_hits``
@@ -269,9 +268,9 @@ def why_found_indexes(reference_library):
 
 @pytest.mark.parametrize("name", list(HIGHLIGHTS) + ["multi_terms"])
 def test_highlight_on_original_document_equals_reference(why_found_indexes, monkeypatch, name):
-    """The reference's search with ``why_found`` gives the term sets; both
-    packages highlight the hits' documents with them, directly and through
-    ``search_to_result_with_doc``."""
+    """Each package's search with ``why_found`` gives the same term sets;
+    both packages highlight the hits' documents with them, directly and
+    through ``search_to_result_with_doc``."""
     pers, index = why_found_indexes
     if name == "multi_terms":
         tree = {"or": {"queries": [
@@ -283,13 +282,13 @@ def test_highlight_on_original_document_equals_reference(why_found_indexes, monk
     ref_res, ref_docs = _ref_search(monkeypatch, pers, {"search_req": tree, "why_found": True})
     terms = {p: set(t) for p, t in ref_res.why_found_terms.items()}
     assert terms and ref_res.data, name
-    got = vt.search(vt.Request.from_dict({"search_req": tree}), index)
+    got = vt.search(vt.Request.from_dict({"search_req": tree, "why_found": True}), index)
     assert [(h.id, h.score) for h in got.data] == [(h.id, h.score) for h in ref_res.data]
+    assert got.why_found_terms == ref_res.why_found_terms
     for hit in got.data:
         doc = json.loads(index.doc_loader.get_doc(hit.id))
         assert doc == json.loads(pers.doc_loader.get_doc(hit.id))
         assert highlight_on_original_document(index, doc, terms) == ref_highlight_doc(pers, doc, terms)
-    got.why_found_terms = ref_res.why_found_terms
     with_docs = vt.search_to_result_with_doc(index, got)
     assert [d.why_found for d in with_docs.data] == [d.why_found for d in ref_docs.data]
     assert with_docs.data[0].why_found

@@ -386,9 +386,9 @@ def test_cases_cover_the_routes(built, batched):
 
 # extras the reference's _generic_eligible sends to its per-request
 # executor: the port answers them on its executor as the reference's
-# executor does ("executor"), or raises the executor's error; boost_term and
-# text_locality raise naming A13. A regex leaf is held to the reference's
-# host re scan (VELOCI_REGEX_DEVICE=0: ROADMAP C6)
+# executor does ("executor"), boost_term and text_locality included, or
+# raises the executor's error. A regex leaf is held to the reference's host
+# re scan (VELOCI_REGEX_DEVICE=0: ROADMAP C6)
 OUT_OF_SLICE = {
     "boost_one_to_n_path": (_with(_leaf("w0a"), boost=[{"path": "labels[]", "boost_fun": "Multiply"}]), "executor"),
     "boost_without_column": (_with(_leaf("w0a"), boost=[{"path": "nr", "boost_fun": "Multiply"}]), "VelociError"),
@@ -396,8 +396,8 @@ OUT_OF_SLICE = {
     "phrase_two_fields": (_with(_leaf("w0a"), phrase_boosts=[{"search1": {"terms": ["pa"], "path": "title"},
                                                               "search2": {"terms": ["pb"], "path": "tags"}}]),
                           "InvalidRequestError"),
-    "boost_term": (_with(_leaf("w0a"), boost_term=[{"terms": ["w1bb"], "path": "title", "boost": 2.0}]), "A13"),
-    "text_locality": (_with(_leaf("w0a"), text_locality=True, **CAT), "A13"),
+    "boost_term": (_with(_leaf("w0a"), boost_term=[{"terms": ["w1bb"], "path": "title", "boost": 2.0}]), "executor"),
+    "text_locality": (_with(_leaf("w0a"), text_locality=True, **CAT), "executor"),
     "regex_in_filter": (_with(_leaf("w0a"), filter={"search": {"terms": ["c1.*"], "path": "cat",
                                                                "is_regex": True}}), "executor"),
 }
@@ -421,10 +421,6 @@ def test_out_of_slice_raises(built, name):
             assert batch_mod._generic_eligible(Request.from_dict(req), pers, pers.device_combined()) is None
     index = indexes["ref_disk"]
     batch = [PortRequest.from_dict(CASES["facets"]), PortRequest.from_dict(req)]
-    if expect == "A13":
-        with pytest.raises(NotImplementedError, match=expect):
-            search_batch(batch, index)
-        return
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ex_mod, "SMALL_DOCS", 0)
         mp.setenv("VELOCI_REGEX_DEVICE", "0")
@@ -522,11 +518,6 @@ def test_facet_gates_follow_the_reference(built):
 
 # ---------------------------------------------------------------- goldens
 GOLDENS = json.load(open(os.path.join(os.path.dirname(__file__), "goldens.json")))["entries"]
-# the entries the port does not answer yet: boost_term, text_locality (A13)
-NOT_ADMITTED = {
-    i for i, e in enumerate(GOLDENS)
-    if e["kind"] == "request" and (e["request"].get("boost_term") or e["request"].get("text_locality"))
-}
 
 
 @pytest.fixture(scope="module")
@@ -552,13 +543,9 @@ def _golden_request(entry, golden_indexes):
 @pytest.mark.parametrize("i", range(len(GOLDENS)))
 def test_golden(i, golden_indexes):
     """The port's search_batch against the frozen goldens, with
-    test_goldens.py's tolerance (scores rounded to 4 decimals); an entry
-    the port does not admit raises naming its ROADMAP item."""
+    test_goldens.py's tolerance (scores rounded to 4 decimals), entries 15
+    (boost_term) and 16 (text_locality) included."""
     req, index = _golden_request(GOLDENS[i], golden_indexes)
-    if i in NOT_ADMITTED:
-        with pytest.raises(NotImplementedError, match="A13"):
-            search_batch([req], index)
-        return
     _check_golden(GOLDENS[i], search_batch([req], index)[0])
 
 
@@ -567,11 +554,6 @@ def test_golden_search(i, golden_indexes):
     """The same goldens through ``search``, one request at a time, and
     through its dense executor."""
     req, index = _golden_request(GOLDENS[i], golden_indexes)
-    if i in NOT_ADMITTED:
-        for dense_only in (False, True):
-            with pytest.raises(NotImplementedError, match="A13"):
-                search(req, index, dense_only=dense_only)
-        return
     _check_golden(GOLDENS[i], search(req, index))
     _check_golden(GOLDENS[i], search(req, index, dense_only=True))
 

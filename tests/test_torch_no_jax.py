@@ -1,7 +1,8 @@
 """The port stands alone: it never imports ``jax`` nor anything of the JAX
 package ``veloci_tpu/``, runs from a tree that holds only the port, the
-native indexer's source and ``chip_smoke.py`` (its search, a regex request
-and a document read included), and refuses a CUDA device it does not
+native indexer's source and ``chip_smoke.py`` (its search, a regex request,
+a document read, warmup, a boost_term / text_locality / why_found request
+and suggest included), and refuses a CUDA device it does not
 have. ``chip_smoke.py`` refuses to run without a card, in the
 repository, in that tree and alone."""
 
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 from veloci_tpu_torch import (
     Persistence, Request, SearchQueryGeneratorParameters, create_indices_from_str, load_index,
-    search, search_batch, search_query, search_to_result_with_doc,
+    search, search_batch, search_query, search_to_result_with_doc, suggest, suggest_batch, suggest_query,
 )
 
 rng = np.random.default_rng(3)
@@ -73,6 +74,14 @@ whole = search_to_result_with_doc(index, res)
 picked = search_to_result_with_doc(index, res, ["title"])  # "{}" keeps no select stores: {}
 assert [d.hit for d in whole.data] == [d.hit for d in picked.data] == res.data, (whole, picked)
 assert all("ell" in d.doc["title"].lower() for d in whole.data), whole
+assert index.warmup() > 0 and index.last_warmup_breakdown, index.last_warmup_breakdown
+feat = {"search_req": {"or": {"queries": [leaf("hello"), leaf("world")]}}, "text_locality": True,
+        "boost_term": [{"terms": ["help"], "path": "title", "levenshtein_distance": 1}], "why_found": True}
+res = search(Request.from_dict(feat), index)
+assert res.num_hits > 0 and res.data and res.why_found_terms, res
+assert search_batch([Request.from_dict(feat)], index)[0].data == res.data
+sugg = suggest_batch(index, [suggest_query("hel", index), suggest_query("wor", index, levenshtein=1)])
+assert all(sugg) and suggest(index, suggest_query("hel", index)) == sugg[0], sugg
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (m == "jax" or m.startswith("jax."))]
 assert not loaded, loaded
 assert sys.argv[1] != "block" or sys.modules["jax"] is None

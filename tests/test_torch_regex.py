@@ -187,11 +187,15 @@ def _term():
        prefix=st.booleans(), ignore_case=st.booleans())
 def test_candidates_hold_every_re_match(pattern, terms, prefix, ignore_case):
     index, terms = _dictionary_index(terms + [""])
-    rx = re.compile(pattern, re.IGNORECASE if ignore_case else 0)
+    flags = re.IGNORECASE if ignore_case else 0
+    try:  # the grammar can stack quantifiers ("a**"), which re refuses: then
+        rx = re.compile(pattern, flags)  # the leaf searches the escaped term
+    except re.error:
+        rx = re.compile(re.escape(pattern), flags)
     fn = rx.match if prefix else rx.fullmatch
     want = [i for i, t in enumerate(terms) if fn(t)]
-    reads, shorthand = fs._dfa_escapes(pattern)
-    dfa = regex_dfa.compile_dfa(pattern, ignore_case=True)
+    reads, shorthand = fs._dfa_escapes(rx.pattern)
+    dfa = regex_dfa.compile_dfa(rx.pattern, ignore_case=True)
     if reads and dfa is not None:
         cand = set(fs._regex_candidates(index, "f", dfa, shorthand, prefix).tolist())
         assert set(want) <= cand, (pattern, [terms[i] for i in set(want) - cand])

@@ -270,16 +270,18 @@ def test_sweep_entry_points_run_on_cpu(built):
 # with several terms, deeper trees, node options, regex leaves (held to the
 # reference's host re scan, VELOCI_REGEX_DEVICE=0: ROADMAP C6), leaves that
 # ask for snippets; their answers equal the reference executor's, and a
-# boost on "nr" (no boost column) raises its VelociError. The rest raise
-# NotImplementedError naming their ROADMAP item.
+# boost on "nr" (no boost column) raises its VelociError. A why_found
+# request rides the batched route ("batched"): its answer, why_found_terms
+# included, equals the reference's search. explain raises
+# NotImplementedError naming ROADMAP A13b.
 OUT_OF_SLICE = {
     "request_boost": (dict(_leaf("w1bb"), boost=[{"path": "nr", "boost_fun": "Log10"}]), "VelociError"),
     "facets": (dict(_leaf("w1bb"), facets=[{"field": "nr"}]), "executor"),
-    "why_found": (dict(_leaf("w1bb"), why_found=True), "A13"),
-    "explain": (dict(_leaf("w1bb"), explain=True), "A13"),
+    "why_found": (dict(_leaf("w1bb"), why_found=True), "batched"),
+    "explain": (dict(_leaf("w1bb"), explain=True), "A13b"),
     "regex": (_leaf("w1.*", is_regex=True), "executor"),
     "snippet": (_leaf("w1bb", snippet=True), "executor"),
-    "leaf_options": (_leaf("w1bb", options={"explain": True}), "A13"),
+    "leaf_options": (_leaf("w1bb", options={"explain": True}), "A13b"),
     "two_terms": ({"search_req": {"search": {"terms": ["w1bb", "b"], "path": "title"}}}, "executor"),
     "four_alternations": (_or(_and(_or(_and(_leaf("w1bb"), _leaf("w2ccc")), _leaf("w0a")), _leaf("w10")),
                               _leaf("w3dddd")), "executor"),
@@ -304,12 +306,20 @@ def test_out_of_slice_raises(built, name):
         return
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ex_mod, "SMALL_DOCS", 0)
+        mp.setattr(batch_mod, "SMALL_DOCS", 0)
         mp.setenv("VELOCI_REGEX_DEVICE", "0")
         mp.setattr(pers, "_field_search_cache", {}, raising=False)
         try:
-            want = ex_mod.search(Request.from_dict(req), pers, dense_only=True)
+            want = ex_mod.search(Request.from_dict(req), pers, dense_only=expect != "batched")
         except Exception as e:  # noqa: BLE001 -- the error type is what is compared
             want = type(e).__name__
+    if expect == "batched":
+        before = index.path_counts["executor"]
+        got = search_batch(batch, index)[1]
+        assert index.path_counts["executor"] == before
+        _assert_parity(got, want, name)
+        assert got.why_found_terms == want.why_found_terms and got.why_found_terms
+        return
     if expect != "executor":
         with pytest.raises(Exception) as err:
             search_batch(batch, index)

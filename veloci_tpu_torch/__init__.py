@@ -17,15 +17,17 @@ answers one request: on those routes when they take it, else (deep trees,
 leaves with several terms, leaf and node boost options, 1:n boosts, facet
 fields past the batched gates, regex leaves -- a ``*`` inside a query-string
 word -- and leaves that ask for snippets) on the per-request dense
-executor, which ``search_batch`` also hands such requests to.
-:func:`search_to_result_with_doc` reads a result's documents back (whole,
-or the ``select`` fields), and :func:`highlight_field` gives a field's
-snippets. The Levenshtein sweeps, the regex DFA walk and the executor's
-dense posting resolve are hand-written CUDA kernels
-(``csrc/banded_levenshtein.cu``, ``csrc/full_levenshtein.cu``,
-``csrc/regex_dfa.cu``, ``csrc/dense_resolve.cu``). ``boost_term``,
-``text_locality``, ``why_found``, ``explain`` and ``suggest`` raise
-``NotImplementedError``.
+executor, which ``search_batch`` also hands such requests to, with
+``boost_term`` and ``text_locality`` requests. ``why_found`` rides either
+route. :func:`search_to_result_with_doc` reads a result's documents back
+(whole, or the ``select`` fields), and :func:`highlight_field` gives a
+field's snippets. :func:`suggest` and :func:`suggest_batch` answer suggest
+requests (:func:`suggest_query` builds one from a prefix), and
+:meth:`TorchIndex.warmup` readies an index for its first request. The
+Levenshtein sweeps, the regex DFA walk and the executor's dense posting
+resolve are hand-written CUDA kernels (``csrc/banded_levenshtein.cu``,
+``csrc/full_levenshtein.cu``, ``csrc/regex_dfa.cu``,
+``csrc/dense_resolve.cu``). ``explain`` raises ``NotImplementedError``.
 
     index = load_index("path/to/index")  # on the card; load_index(path, "cpu") on the CPU
     results = search_batch([Request.from_dict(d) for d in dicts], index)
@@ -33,6 +35,8 @@ dense posting resolve are hand-written CUDA kernels
     with_docs = search_to_result_with_doc(index, result, select=["title"])
     query = search_query(index, SearchQueryGeneratorParameters(search_term="haus AND bu*"))
     results = search_batch([query], index)
+    index.warmup()  # once, after load
+    suggestions = suggest(index, suggest_query("hau", index, fields=["title"]))
 
 An index is built with ``Persistence.from_built(create_indices_from_str(ndjson,
 config))`` and written with ``Persistence.save(directory)``.
@@ -40,10 +44,10 @@ config))`` and written with ``Persistence.save(directory)``.
 
 from .create import add_token_values_to_tokens, create_indices_from_str
 from .persistence import Persistence, TorchIndex, load_index
-from .query.generator import SearchQueryGeneratorParameters, search_query
+from .query.generator import SearchQueryGeneratorParameters, search_query, suggest_query
 from .query.request import Request
 from .search.batch import search_batch
-from .search.executor import search, search_to_result_with_doc
+from .search.executor import search, search_to_result_with_doc, suggest, suggest_batch
 from .search.field_search import highlight_field
 from .search.result import DocWithHit, Hit, SearchResult, SearchResultWithDoc
 
@@ -64,4 +68,7 @@ __all__ = [
     "search_batch",
     "search_query",
     "search_to_result_with_doc",
+    "suggest",
+    "suggest_batch",
+    "suggest_query",
 ]

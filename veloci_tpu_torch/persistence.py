@@ -357,7 +357,8 @@ class TorchIndex:
     metadata, key-value relations, boost columns, phrase pairs) that
     filters, boosts, facets and phrase boosts read. ``cache`` holds what
     the batched route derives from them once (device boost columns, filter
-    masks, facet relations)."""
+    masks, facet relations); :meth:`warmup` fills it before the first
+    request."""
 
     def __init__(
         self, *, num_docs, all_fields, dictionaries, fields, long_terms, host_offsets, offsets,
@@ -385,6 +386,8 @@ class TorchIndex:
         self.doc_store_bytes: Optional[bytes] = doc_store_bytes  # docs.bin, as read
         self._doc_loader: Optional[DocLoader] = None
         self.cache: dict = {}
+        self.term_boost_cache: dict = {}  # boost_term part key -> its anchors (search/boost.py)
+        self.last_warmup_breakdown: dict = {}  # seconds per step of the last warmup()
         self.path_counts: Counter = Counter()  # requests answered per route
         self.gathered_rows: Counter = Counter()  # posting rows read per route
 
@@ -538,6 +541,92 @@ class TorchIndex:
                 torch.from_numpy(v).to(self.device), torch.from_numpy(p).to(self.device)
             )
         return cached
+
+    def warmup(self, queries: Optional[List[str]] = None, top: int = 10) -> float:
+        """Make the first real request fast (``Persistence.warmup``,
+        ``persistence.py:895-1088``, without its TPU compile grids and its
+        compile cache): on a CUDA device, build and load every kernel
+        library; upload every boost column and every field's facet relation
+        (the sweep matrices, the posting CSR and the regex row flags are
+        made at upload); then answer probe requests through ``search_batch``
+        and, the last of them, through ``search`` on the dense executor,
+        which builds the filter mask of the probe's filter. ``queries``
+        defaults to the reference's self-derived probes: the terms of the
+        largest and of a median posting run and a frequent short term. Each
+        probe is the generator's canonical expansion (its auto-Levenshtein
+        distance, an OR over every field with postings) and its exact form.
+        Records the seconds of each step in ``last_warmup_breakdown`` and
+        returns the seconds spent in all."""
+        import time
+
+        from .query.generator import get_levenshteinn
+        from .query.request import Request, RequestSearchPart, SearchRequest
+        from .search.batch import search_batch
+        from .search.executor import search
+        from .search.facet import facet_relation
+
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from .ops import _build, levenshtein_sweep, postings, regex_dfa
+
+            _build.build_all()
+            for source, signature in (*levenshtein_sweep.SIGNATURES.items(),
+                                      (postings.SOURCE, postings.SIGNATURE),
+                                      (regex_dfa.SOURCE, regex_dfa.SIGNATURE)):
+                _build.load(source, signature)
+        t1 = time.perf_counter()
+        for path in self.boost_stores:
+            self.device_boost(path)
+        for field in self.all_fields:
+            facet_relation(self, field)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        self.last_warmup_breakdown = {"build_s": t1 - t0, "upload_s": t2 - t1}
+        fields = sorted(self.key_base)
+        if queries is None:
+            queries = self._warmup_terms()
+        reqs = []
+        for term in queries if fields else ():
+            for dist in (get_levenshteinn(term, None, None, False), 0):
+                leaves = [SearchRequest.search(RequestSearchPart(path=f, terms=[term], levenshtein_distance=dist))
+                          for f in fields]
+                node = leaves[0] if len(leaves) == 1 else SearchRequest.or_(leaves)
+                reqs.append(Request(search_req=node, top=top))
+        if reqs:
+            search_batch(reqs, self)
+            last = reqs[-1]
+            last.filter = last.search_req
+            search(last, self, dense_only=True)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self.last_warmup_breakdown["probe_s"] = time.perf_counter() - t2
+        return time.perf_counter() - t0
+
+    def _warmup_terms(self) -> List[str]:
+        """The terms of the largest and of a median posting run, and, until
+        there are three, of the 256 largest runs whose term has at most 10
+        chars (the reference's probes, ``persistence.py:1033-1061``)."""
+        num_keys = sum(nk for _base, nk in self.key_base.values())
+        counts = np.diff(self.host_offsets[: num_keys + 1])
+        if not len(counts):
+            return []
+
+        def term_of(gid):
+            for field, (base, nk) in self.key_base.items():
+                if base <= gid < base + nk:
+                    return self.get_dictionary(field).terms[gid - base]
+            return ""
+
+        order = np.argsort(counts)
+        probes = {int(order[-1]), int(order[len(counts) // 2])}
+        for gid in order[::-1][:256].tolist():
+            t = term_of(gid)
+            if t.strip() and len(t) + 2 <= 12:
+                probes.add(gid)
+                if len(probes) > 2:
+                    break
+        return [t for t in map(term_of, probes) if t.strip()]
 
 
 def load_index(directory, device="cuda") -> TorchIndex:

@@ -1,8 +1,8 @@
 """Query generator: free-text query + parameters -> full `Request`. The
 port's copy of ``veloci_tpu/query/generator.py``.
 
-Reference: src/query_generator.rs (`search_query` :175-246, auto-levenshtein
-:85-99, boost_terms :146-168) and
+Reference: src/query_generator.rs (`search_query` :175-246, `suggest_query`
+:288-322, auto-levenshtein :85-99, boost_terms :146-168) and
 src/query_generator/query_parser_to_veloci_request.rs (field expansion,
 wildcard handling, stopword filtering).
 """
@@ -26,7 +26,7 @@ from .request import (
     SearchRequest,
 )
 
-__all__ = ["SearchQueryGeneratorParameters", "search_query"]
+__all__ = ["SearchQueryGeneratorParameters", "search_query", "suggest_query"]
 
 
 @dataclass
@@ -339,3 +339,37 @@ def search_query(persistence, opt: SearchQueryGeneratorParameters) -> Request:
     if opt.select is not None:
         request.select = [s for s in opt.select.split(",") if s]
     return request
+
+
+def suggest_query(
+    term: str,
+    persistence,
+    top: Optional[int] = None,
+    skip: Optional[int] = None,
+    levenshtein: Optional[int] = None,
+    fields: Optional[List[str]] = None,
+    levenshtein_auto_limit: Optional[int] = None,
+) -> Request:
+    """Reference query_generator.rs:288-322."""
+    if top is None:
+        top = 10
+    requests = []
+    for field_name in get_all_search_field_names(persistence, fields):
+        d = (
+            levenshtein
+            if levenshtein is not None
+            else get_default_levenshtein(
+                term, levenshtein_auto_limit if levenshtein_auto_limit is not None else 1, True
+            )
+        )
+        requests.append(
+            RequestSearchPart(
+                path=field_name,
+                terms=[term],
+                levenshtein_distance=d,
+                starts_with=True,
+                top=top,
+                skip=skip,
+            )
+        )
+    return Request(suggest=requests, top=top, skip=skip)

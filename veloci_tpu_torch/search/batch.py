@@ -30,10 +30,13 @@ The reference sends a request past its caps (leaf term counts, slots,
 groups, sort capacity, phrase anchors) to its per-request executor; here
 every admitted request is answered on its tree route, and a batch whose
 gathered posting rows exceed ``_ROW_BUDGET`` is split into several sorts.
-The shapes the tree routes do not take -- the reference's own causes for
-its executor (``_generic_eligible``, ``:484-647``; ``:1062``) -- go to the
-per-request dense executor (:func:`.executor.search`), one request at a
-time, as there. The shapes outside the port raise ``NotImplementedError``
+A ``why_found`` request takes the route its shape takes; its result then
+gets the leaves' matched terms and, with ``select``, its top hits'
+highlighted texts (``_attach_why_found``, ``:828-868``). The shapes the
+tree routes do not take -- the reference's own causes for its executor
+(``_generic_eligible``, ``:484-647``; ``:1062``) -- go to the per-request
+dense executor (:func:`.executor.search`), one request at a time, as
+there. The shapes outside the port raise ``NotImplementedError``
 naming the ROADMAP item that brings them. One table decides
 (:data:`_ADMISSION`); no request falls through to another engine on an
 error.
@@ -57,13 +60,15 @@ from ..ops.tree_step import _apply_boost_gathered, batched_tree_candidates
 from .boost import ScoreExpression, expr_vec, resolve_ids_to_anchor
 from .facet import facet_counts, facet_relation, format_counts
 from .field_search import (
-    clamped_distance,
+    fuzzy_spec,
     get_term_ids_in_field,
     leaf_field,
     match_term_ids,
     prefetch_fuzzy_matches,
+    search_field,
 )
 from .result import Hit, SearchResult
+from .why_found import get_why_found, merge_field_hits
 
 __all__ = ["search_batch"]
 
@@ -73,7 +78,7 @@ SEARCH, OR, AND = SearchRequest.SEARCH, SearchRequest.OR, SearchRequest.AND
 # (about 64 bytes a row across the key, score, order and run arrays)
 _ROW_BUDGET = 1 << 23
 
-_A13 = "A13 (boost_term, text_locality, why_found, explain, suggest)"
+_A13B = "A13b (explain, explain_plan)"
 
 
 def _unsupported(what: str, item: str):
@@ -140,18 +145,18 @@ def _scan(node, index) -> _Tree:
 # the shape; "executor" sends the request to the per-request dense
 # executor; "generic" and "plain" admit it to the tree routes, unless its
 # tree is beyond OR(AND(OR)) once flattened (_plan), which goes to the
-# executor too. The executor rows are where the reference's
+# executor too. why_found has no row: it rides any route, and the route's
+# results get its metadata (_attach_why_found). The executor rows are where the reference's
 # _generic_eligible sends a request to its executor; its caps that exist
 # only for the TPU compile and memory model (_MAX_FILTER_ANCHORS on phrase
 # anchors, the t/q/p pad buckets, _MAX_LEAF_TERMS_FUZZY with its "fz"
 # route) have no row. Admission runs for every request of a batch, so the
 # tree is read once (_scan) and each row reads its flags.
 _ADMISSION = (
-    (None, lambda r, ix, t: r.boost_term, ("request 'boost_term'", _A13)),
-    (None, lambda r, ix, t: r.why_found, ("request 'why_found'", _A13)),
-    (None, lambda r, ix, t: r.text_locality, ("request 'text_locality'", _A13)),
-    (None, lambda r, ix, t: r.explain or t.explain, ("request or leaf 'explain'", _A13)),
-    (None, lambda r, ix, t: r.suggest, ("request 'suggest'", _A13)),
+    (None, lambda r, ix, t: r.explain or t.explain, ("request or leaf 'explain'", _A13B)),
+    ("executor", lambda r, ix, t: r.boost_term, "a 'boost_term' factor"),
+    ("executor", lambda r, ix, t: r.text_locality, "a 'text_locality' factor"),
+    ("executor", lambda r, ix, t: r.suggest, "a request that carries 'suggest' (its search_req is answered)"),
     ("executor", lambda r, ix, t: t.regex or any(p.is_regex for p in _extra_parts(r)),
      "a regex leaf, in the tree, a filter or a phrase boost"),
     ("executor", lambda r, ix, t: t.snippet, "a leaf that asks for snippets"),
@@ -625,8 +630,9 @@ def _fuzzy_specs(requests):
     a prefetch spec (``_prefetch_request_fuzzy``, ``:314-336``)."""
     for req in requests:
         for p in (*req.search_req.walk_parts(), *_extra_parts(req)):
-            if clamped_distance(p) > 0 and not p.is_regex:
-                yield leaf_field(p), p.terms[0].lower(), clamped_distance(p), bool(p.starts_with)
+            spec = fuzzy_spec(p)
+            if spec is not None:
+                yield spec
 
 
 def search_batch(requests: List, index) -> List[SearchResult]:
@@ -684,4 +690,21 @@ def search_batch(requests: List, index) -> List[SearchResult]:
     for (route, boost_keys, facet_fields), queries in generic.items():
         extras = _group_extras(index, boost_keys, facet_fields, queries, requests, fuzzy)
         _answer(index, route, queries, requests, results, start, extras)
+    for req, plan, res in zip(requests, plans, results):
+        if req.why_found and plan[0] != "executor":
+            _attach_why_found(index, req, res, fuzzy)
     return results
+
+
+def _attach_why_found(index, req, res, fuzzy) -> None:
+    """A why_found request's metadata on its tree route's result
+    (``_why_found_meta``, ``_attach_why_found``, ``:828-868``): each leaf's
+    field search again, with its term id hits and texts, then the executor's
+    finalisation on the route's top hits."""
+    term_id_hits, term_texts = merge_field_hits(
+        search_field(index, p, fuzzy, store_term_id_hits=True, store_term_texts=True)
+        for p in req.search_req.walk_parts()
+    )
+    res.why_found_terms = term_texts
+    if req.select is not None:
+        res.why_found_info = get_why_found(index, [h.id for h in res.data], term_id_hits)

@@ -6,8 +6,10 @@ Counterpart of ``ScoreExpression`` (``veloci_tpu/search/boost.py:53``),
 ``apply_boost_scalar`` (``:102``), ``apply_boost_dense_device`` (``:176``),
 ``apply_anchor_boost_values_device`` (``:208``), ``scatter_factor_device``
 (``:258``), ``_expr_vec_jnp`` (``:277``), ``resolve_ids_to_anchor``
-(``:309``), ``boost_to_anchor_values`` (``:322``) and ``anchor_boost_accs``
-(``:382``); reference src/search/boost.rs and src/expression.rs. On the
+(``:309``), ``boost_to_anchor_values`` (``:322``), ``anchor_boost_accs``
+(``:382``), ``term_boost_factor_device`` (``:471``, B10) and
+``text_locality_boost`` (``:515``); reference src/search/boost.rs and
+src/expression.rs. On the
 batched route the per-document boost columns apply at the tree route's
 candidate anchors (:mod:`..ops.generic_step`,
 :func:`..ops.tree_step._apply_boost_gathered`).
@@ -48,6 +50,10 @@ __all__ = [
     "expr_vec",
     "resolve_ids_to_anchor",
     "scatter_factor_device",
+    "resolve_part_anchors",
+    "term_boost_anchors",
+    "term_boost_factor_device",
+    "text_locality_boost",
 ]
 
 _F32 = np.float32
@@ -318,3 +324,124 @@ def scatter_factor_device(dense: torch.Tensor, anchors, factor: float) -> torch.
     out = dense.clone()
     out[a] = dense[a] * torch.from_numpy(prod).to(dense.device)
     return out
+
+
+TERM_BOOST_CACHE_LIMIT = 512  # entries; the cache is emptied past it, as the reference's
+
+
+def resolve_part_anchors(index, part, ids):
+    """A ``boost_term`` part's matched term ``ids`` resolved to its anchors
+    below ``num_docs``, on the device, with the most times one anchor
+    appears among them: ``(anchors, most)``."""
+    path = part.path if part.path.endswith(TEXTINDEX) else part.path + TEXTINDEX
+    anchors = resolve_ids_to_anchor(index, path, ids)
+    anchors = anchors[anchors < index.num_docs]
+    most = int(np.unique(anchors, return_counts=True)[1].max(initial=0))
+    return torch.from_numpy(anchors).to(index.device), most
+
+
+def term_boost_anchors(index, boost_terms, fuzzy) -> list:
+    """Each ``boost_term`` part's ``(anchors, most)``
+    (:func:`resolve_part_anchors` of its matched ids), cached per part key in
+    ``index.term_boost_cache`` (reference ``term_boost_cache``,
+    persistence.rs:67) and emptied past 512 entries; hits and misses are
+    counted on ``index.path_counts``.
+
+    Every part is looked up before anything is inserted, so a part found
+    cached keeps its anchors when a later part's miss (or another request)
+    empties the cache. A missed part's fuzzy matches come from ``fuzzy``, the
+    request's prefetch, where they are there; the rest are swept here in one
+    prefetch."""
+    from .field_search import fuzzy_spec, match_term_ids, prefetch_fuzzy_matches  # it imports this module
+
+    cache = index.term_boost_cache
+    found = {}
+    missing = {}  # key -> its first part
+    for part in boost_terms:
+        key = part.key()
+        repeat = key in found  # resolved once for the request, as the reference's second lookup hits
+        if not repeat:
+            found[key] = cache.get(key)
+            if found[key] is None:
+                missing[key] = part
+        index.path_counts["term_boost_cache_hit" if repeat or key not in missing else "term_boost_cache_miss"] += 1
+    specs = {s for s in map(fuzzy_spec, missing.values()) if s is not None and s not in fuzzy}
+    if specs:
+        fuzzy = {**fuzzy, **prefetch_fuzzy_matches(index, specs)}
+    for key, part in missing.items():
+        found[key] = resolve_part_anchors(index, part, match_term_ids(index, part, fuzzy)[0])
+        if len(cache) > TERM_BOOST_CACHE_LIMIT:
+            cache.clear()
+        cache[key] = found[key]
+    return [found[p.key()] for p in boost_terms]
+
+
+def term_boost_factor_device(index, boost_terms, anchors) -> torch.Tensor:
+    """The ``boost_term`` factor, ``[num_docs]`` f32 on the index's device
+    (B10; ``term_boost_factor_device``, ``:471``; reference
+    apply_boost_term, boost.rs:89-196): per part, in order, its
+    ``(anchors, most)`` from :func:`term_boost_anchors`, each anchor's
+    occurrences counted on the device, and the factor multiplied by
+    ``boost ** count`` (boost 2.0 by default). The powers are
+    ``np.power`` in f32 on the host for the counts 0..most, gathered at
+    each anchor's count: the factor is the reference's ``term_boost_factor``
+    bit for bit, whatever the device's ``powf``."""
+    n = index.num_docs
+    factor = torch.ones(n, dtype=torch.float32, device=index.device)
+    for part, (part_anchors, most) in zip(boost_terms, anchors):
+        if not len(part_anchors):
+            continue
+        boost = _F32(part.boost if part.boost is not None else 2.0)
+        powers = np.power(boost, np.arange(most + 1, dtype=_F32), dtype=_F32)
+        counts = torch.bincount(part_anchors, minlength=n)
+        factor = factor * torch.from_numpy(powers).to(index.device)[counts]
+    return factor
+
+
+def text_locality_boost(index, term_id_hits_in_field, num_docs: int) -> np.ndarray:
+    """The text-locality factor per anchor, ``[num_docs]`` f32 on the host
+    (``text_locality_boost``, ``:515``; reference boost_text_locality,
+    boost.rs:11-87): on a path where two or more leaves hit, a text that
+    n of their matched terms land in gets ``2 * n * n``; an anchor takes the
+    least such boost of its texts (the reference's reversed comparator),
+    every other anchor 1."""
+    all_anchors, all_boosts = [], []
+    for path, term_with_ids in term_id_hits_in_field.items():
+        if len(term_with_ids) <= 1:
+            continue
+        tta = index.key_value_stores.get(path + TOKENS_TO_TEXT_ID)
+        if tta is None:
+            continue
+        concat = np.concatenate(
+            [tta.get_values_multi(np.asarray(ids, np.int64)) for ids in term_with_ids.values()]
+        )
+        if len(concat) == 0:
+            continue
+        counts = np.bincount(concat.astype(np.int64))
+        text_ids = np.flatnonzero(counts > 1)
+        if len(text_ids) == 0:
+            continue
+        n_hits = counts[text_ids].astype(_F32)
+        boosts = _F32(2.0) * n_hits * n_hits
+        if index.is_anchor_identity_column(path):
+            all_anchors.append(text_ids.astype(np.int64))
+            all_boosts.append(boosts)
+            continue
+        tia = index.key_value_stores.get(path + TEXT_ID_TO_ANCHOR)
+        if tia is None:
+            continue
+        for tid, bv in zip(text_ids, boosts):
+            anchors = tia.get_values(int(tid))
+            if len(anchors):
+                all_anchors.append(anchors.astype(np.int64))
+                all_boosts.append(np.full(len(anchors), bv, dtype=_F32))
+    factor = np.ones(num_docs, dtype=_F32)
+    if not all_anchors:
+        return factor
+    anchors, boosts = np.concatenate(all_anchors), np.concatenate(all_boosts)
+    keep = anchors < num_docs
+    best = np.full(num_docs, np.inf, dtype=_F32)
+    np.minimum.at(best, anchors[keep], boosts[keep])
+    has = np.isfinite(best)
+    factor[has] = best[has]
+    return factor

@@ -15,13 +15,19 @@ kernel B7 on the card), the tree combines the planes (an OR sums the
 per-term maxima in sorted-term order and multiplies by distinct squared, an
 AND sums its children, the shortest last, where all of them hit), 1:n
 boosts apply at their leaves, then the filter mask, the boost columns, the
-phrase factor, ``num_hits`` = the count of scores > 0, the facet counts
-over that hit set and the exact top-k. The reference computes these planes
-with numpy below ``SMALL_DOCS`` documents; the port has no host branch.
+phrase factor, the ``boost_term`` factor (B10, :func:`.boost.term_boost_factor_device`)
+and the text-locality factor (``:836-868``), ``num_hits`` = the count of
+scores > 0, the facet counts over that hit set and the exact top-k; with
+``why_found``, the leaves' matched terms and, with ``select``, the top
+hits' highlighted texts (:mod:`.why_found`). The reference computes these
+planes with numpy below ``SMALL_DOCS`` documents; the port has no host
+branch.
 
 The executor keeps no memo of field searches across requests: each request
-runs its own (its fuzzy leaves in one sweep launch per field and kernel,
-its regex leaves one DFA walk, kernel B8, per field and matrix). Regex
+runs its own (its fuzzy leaves, and its ``boost_term`` parts not cached yet,
+in one sweep launch per field and kernel, its regex leaves one DFA walk,
+kernel B8, per field and matrix). A ``boost_term`` part's anchors are cached
+per index (``TorchIndex.term_boost_cache``), as the reference's are. Regex
 leaves and leaves that ask for snippets resolve like any other leaf.
 
 :func:`search_to_result_with_doc` reads a result's documents back
@@ -29,10 +35,14 @@ leaves and leaves that ask for snippets resolve like any other leaf.
 ``select``, each hit's fields are rebuilt from the index's stores
 (:func:`.read_document.read_data`); without, the whole document is read
 from the document store and highlighted for ``why_found_terms``.
+
+:func:`suggest` and :func:`suggest_batch` answer suggest requests
+(``_suggest_fast``, ``suggest_batch``, ``suggest``, ``:966-1127``).
 """
 
 from __future__ import annotations
 
+import bisect
 import json
 import time
 from typing import List
@@ -41,7 +51,7 @@ import numpy as np
 import torch
 
 from ..create import PHRASE_PAIR_TO_ANCHOR
-from ..error import InvalidRequestError
+from ..error import FstNotFoundError, InvalidRequestError, VelociError
 from ..ops.postings import resolve_to_anchor_dense
 from ..ops.topk import topk_dense
 from ..query.request import RequestBoostPart, SearchRequest
@@ -51,35 +61,51 @@ from .boost import (
     apply_boost_dense_device,
     boost_to_anchor_values,
     scatter_factor_device,
+    term_boost_anchors,
+    term_boost_factor_device,
+    text_locality_boost,
 )
 from .facet import get_facet
-from .field_search import get_term_ids_in_field, leaf_field, prefetch_fuzzy_matches
+from .field_search import (
+    clamped_distance,
+    fuzzy_spec,
+    leaf_field,
+    prefetch_fuzzy_matches,
+    search_field,
+)
 from .highlight import highlight_on_original_document
 from .read_document import read_data
 from .result import DocWithHit, Hit, SearchResult, SearchResultWithDoc
+from .why_found import get_why_found, merge_field_hits
 
-__all__ = ["search", "search_to_result_with_doc", "to_documents"]
+__all__ = ["search", "search_to_result_with_doc", "suggest", "suggest_batch", "to_documents"]
 
 SEARCH, OR, AND = SearchRequest.SEARCH, SearchRequest.OR, SearchRequest.AND
+_F32 = np.float32
 _DISTINCT_MIN = float(np.float32(1e-5))  # a union counts a term whose maximum reaches this
 
 
 class _Ctx:
     """One request's index, fuzzy matches and field-search results."""
 
-    def __init__(self, index, fuzzy):
+    def __init__(self, index, fuzzy, request):
         self.index = index
         self.fuzzy = fuzzy
         self.num_docs = index.num_docs
+        # the tree's metadata, as the reference collects it (:107-118)
+        self.store_hits = bool(request.why_found or request.text_locality)
+        self.store_texts = bool(request.why_found)
         self._fields: dict = {}
 
     def field_search(self, part):
-        """The leaf's scored term ids (its first term only, as the
-        reference searches, ``field_search.py:423``), once per leaf key."""
+        """The leaf's field search (its first term only, as the reference
+        searches, ``field_search.py:423``), once per leaf key."""
         key = part.key()
         hit = self._fields.get(key)
         if hit is None:
-            hit = self._fields[key] = get_term_ids_in_field(self.index, part, self.fuzzy)
+            hit = self._fields[key] = search_field(
+                self.index, part, self.fuzzy, store_term_id_hits=self.store_hits,
+                store_term_texts=self.store_texts)
         return hit
 
     def zeros(self) -> torch.Tensor:
@@ -142,8 +168,9 @@ def _eval_scores(ctx, node, boosts):
     child's representative is its leftmost leaf's first term."""
     if node.kind == SEARCH:
         part = node.part
-        ids, scores = ctx.field_search(part)
-        dense = resolve_to_anchor_dense(ctx.index, leaf_field(part), ids, scores)
+        fsr = ctx.field_search(part)
+        ids = fsr.term_ids
+        dense = resolve_to_anchor_dense(ctx.index, leaf_field(part), ids, fsr.term_scores)
         b1n = _matching_1n_boost(part, list(boosts) + _option_boosts(part.options))
         if b1n is not None:
             anchors, values = boost_to_anchor_values(ctx.index, part.path, b1n, ids)
@@ -184,8 +211,15 @@ def _phrase_store(index, pb):
 def _execute(request, index, start) -> SearchResult:
     """The dense executor (``search``, ``:758-920``)."""
     index.path_counts["executor"] += 1
-    fuzzy = prefetch_fuzzy_matches(index, set(batch._fuzzy_specs([request])))
-    ctx = _Ctx(index, fuzzy)
+    boost_terms = list(request.boost_term or ())
+    # the tree's, the filter's and the phrase pairs' fuzzy leaves in one
+    # prefetch, with the boost_term parts' not cached yet, to share its launch
+    # (term_boost_anchors sweeps any it still misses)
+    specs = set(batch._fuzzy_specs([request]))
+    uncached = [p for p in boost_terms if p.key() not in index.term_boost_cache]
+    specs.update(s for s in map(fuzzy_spec, uncached) if s is not None)
+    fuzzy = prefetch_fuzzy_matches(index, specs)
+    ctx = _Ctx(index, fuzzy, request)
     boosts = list(request.boost or ())
     dense, _term, _path = _eval_scores(ctx, request.search_req, boosts)
     if request.filter is not None:
@@ -195,7 +229,14 @@ def _execute(request, index, start) -> SearchResult:
             dense = apply_boost_dense_device(dense, batch._boost_factors(index, batch._boost_key(b)))
     if request.phrase_boosts:
         dense = _phrase_boost(ctx, request.phrase_boosts, dense)
+    term_id_hits, term_texts = merge_field_hits(map(ctx.field_search, request.search_req.walk_parts()))
+    if boost_terms:  # boost.rs:89-196
+        dense = dense * term_boost_factor_device(index, boost_terms, term_boost_anchors(index, boost_terms, fuzzy))
+    if request.text_locality:  # boost.rs:11-87, a host factor uploaded once
+        factor = text_locality_boost(index, term_id_hits, ctx.num_docs)
+        dense = dense * torch.from_numpy(factor).to(index.device)
     result = SearchResult()
+    result.why_found_terms = term_texts
     result.num_hits = int((dense > 0).sum())
     if request.facets:
         result.facets = {f.field: get_facet(index, f, dense) for f in request.facets}
@@ -204,6 +245,8 @@ def _execute(request, index, start) -> SearchResult:
     ids, scores = topk_dense(dense, top + skip)
     ids, scores = ids[skip:].cpu().numpy(), scores[skip:].cpu().numpy()
     result.data = [Hit(int(i), float(s)) for i, s in zip(ids, scores)]
+    if request.why_found and request.select is not None:
+        result.why_found_info = get_why_found(index, [h.id for h in result.data], term_id_hits)
     result.execution_time_ns = time.time_ns() - start
     return result
 
@@ -213,9 +256,9 @@ def search(request, index, dense_only: bool = False) -> SearchResult:
 
     A request the batched route admits is answered as
     ``search_batch([request], index)[0]``; the rest, and every request when
-    ``dense_only`` is set, by the dense executor. Shapes outside the port
-    raise ``NotImplementedError`` naming their ROADMAP item (``boost_term``,
-    ``text_locality``, ``why_found``, ``explain`` and ``suggest``: A13)."""
+    ``dense_only`` is set, by the dense executor. ``explain``, on the
+    request or a leaf, raises ``NotImplementedError`` naming ROADMAP
+    A13b."""
     start = time.time_ns()
     if batch._plan(request, index)[0] != "executor" and not dense_only:
         return batch.search_batch([request], index)[0]
@@ -250,3 +293,126 @@ def search_to_result_with_doc(index, result: SearchResult, select=None) -> Searc
         facets=result.facets,
         execution_time_ns=result.execution_time_ns,
     )
+
+
+def _suggest_fast(index, request):
+    """The vectorised suggest for the canonical shape (``_suggest_fast``,
+    ``:966-1071``): every part one term, ``starts_with``, distance 0 once
+    clamped, case folded, no regex, snippet, token value, options or
+    part-level ``top`` / ``skip``; else None.
+
+    In a prefix range a term's score falls with its length alone (distance
+    = length - prefix length, the prefix formula), so (score desc, text
+    desc) is (length asc, text desc), and each part's best ``top + skip``
+    are taken by position in the lowercase-sorted slice, without the other
+    strings. Equal lowercase texts keep the smallest id; across parts the
+    earlier part keeps an equal score, as :func:`suggest`'s merge does."""
+    if request.top is None:
+        return None
+    skip = request.skip or 0
+    need = request.top + skip
+    if need <= 0:
+        return []
+    per_part = []
+    for part in request.suggest:
+        if (
+            len(part.terms) != 1 or not part.starts_with or clamped_distance(part) or part.is_regex
+            or part.snippet or (part.options or None) or part.token_value is not None
+            or part.top is not None or part.skip is not None or part.ignore_case is False
+        ):
+            return None
+        try:
+            dictionary = index.get_dictionary(leaf_field(part))
+        except FstNotFoundError:
+            return None
+        prefix = part.terms[0].lower()
+        arr = dictionary._lower_sorted
+        i = bisect.bisect_left(arr, prefix)
+        j = bisect.bisect_right(arr, prefix + "\U0010FFFF", lo=i)
+        if j <= i:
+            continue
+        perm = dictionary.lower_perm_np[i:j]
+        lens = dictionary.char_lengths()[perm]
+        # (length asc, slice position desc) == (score desc, text desc);
+        # equal lowercase texts are adjacent in the slice and stay so
+        order = np.lexsort((-np.arange(len(perm)), lens))
+        boost = _F32(part.boost) if part.boost is not None else None
+        sel = []  # (lowercase text, score, term id)
+        prev_txt = None
+        for oi in order.tolist():
+            txt = arr[i + oi]
+            tid = int(perm[oi])
+            if txt == prev_txt:
+                if tid < sel[-1][2]:  # the smallest id of equal lowercase texts
+                    sel[-1] = (txt, sel[-1][1], tid)
+                continue
+            if len(sel) >= need:
+                break  # a new text past the window: done
+            dist = _F32(int(lens[oi]) - len(prefix))
+            score = _F32(2.0) / (np.log2(dist + _F32(1.0)) + _F32(0.2))
+            if boost is not None:
+                score = _F32(score * boost)
+            sel.append((txt, float(score), tid))
+            prev_txt = txt
+        per_part.append(sel)
+    return _merge_suggestions(((term, score, tid) for sel in per_part for term, score, tid in sel),
+                              skip, request.top)
+
+
+def _merge_suggestions(triples, skip: int, top):
+    """(text, score, term id) over the parts, in part order -> the best score
+    per text (an earlier equal score stays), text descending, then score
+    descending (get_text_score_id_from_result, search_field.rs:160-192),
+    windowed by ``skip`` and ``top``."""
+    merged = {}
+    for term, score, tid in triples:
+        prev = merged.get(term)
+        if prev is None or score > prev[0]:
+            merged[term] = (score, tid)
+    out = [(term, score, tid) for term, (score, tid) in merged.items()]
+    out.sort(key=lambda el: el[0], reverse=True)
+    out.sort(key=lambda el: -el[1])
+    out = out[skip:]
+    return out if top is None else out[:top]
+
+
+def _suggest_general(index, request, fuzzy):
+    """Each part's field search, its kept terms lowercased, merged
+    (``suggest``, ``:1080-1127``)."""
+    triples = []
+    for part in request.suggest:
+        fsr = search_field(index, part, fuzzy, return_term=True, return_term_lowercase=True)
+        triples.extend((fsr.terms[tid], float(score), tid)
+                       for tid, score in zip(fsr.term_ids.tolist(), fsr.term_scores))
+    return _merge_suggestions(triples, request.skip or 0, request.top)
+
+
+def suggest_batch(index, requests) -> list:
+    """Answer suggest requests (``suggest_batch``, ``:1073``): each is a
+    list of ``(lowercase text, score, term id)``, the reference's. A
+    request of the canonical prefix shape takes the vectorised path
+    (:func:`_suggest_fast`), the rest the general one, their fuzzy parts
+    matched in one prefetch for the whole batch. ``index.path_counts``
+    counts each path ("suggest_fast", "suggest_general")."""
+    out: list = [None] * len(requests)
+    general = []
+    for i, request in enumerate(requests):
+        if not request.suggest:
+            raise VelociError("only suggest allowed in suggest function")
+        out[i] = _suggest_fast(index, request)
+        if out[i] is None:
+            general.append(i)
+    index.path_counts["suggest_fast"] += len(requests) - len(general)
+    index.path_counts["suggest_general"] += len(general)
+    if general:
+        specs = {fuzzy_spec(p) for i in general for p in requests[i].suggest} - {None}
+        fuzzy = prefetch_fuzzy_matches(index, specs)
+        for i in general:
+            out[i] = _suggest_general(index, requests[i], fuzzy)
+    return out
+
+
+def suggest(index, request) -> list:
+    """One suggest request (``suggest``, ``:1080``; reference
+    search_field::suggest_multi, search_field.rs:194-219)."""
+    return suggest_batch(index, [request])[0]

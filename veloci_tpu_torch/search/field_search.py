@@ -53,6 +53,10 @@ __all__ = [
     "get_default_score_for_distance",
     "prefetch_fuzzy_matches",
     "get_term_ids_in_field",
+    "search_field",
+    "fuzzy_spec",
+    "leaf_fuzzy",
+    "leaf_path",
     "highlight_field",
     "match_term_ids",
     "resolve_token_hits_to_text_id",
@@ -75,6 +79,21 @@ def get_default_score_for_distance(distance, prefix_matches):
 def leaf_field(part) -> str:
     path = part.path
     return path[: -len(TEXTINDEX)] if path.endswith(TEXTINDEX) else path
+
+
+def leaf_path(part) -> str:
+    """The leaf's field path with ``.textindex``."""
+    return part.path if part.path.endswith(TEXTINDEX) else part.path + TEXTINDEX
+
+
+def fuzzy_spec(part):
+    """The leaf's prefetch spec ``(field, lower_term, distance,
+    starts_with)`` (:func:`prefetch_fuzzy_matches`), or None for a leaf
+    that is not fuzzy."""
+    d = clamped_distance(part)
+    if d == 0 or part.is_regex:
+        return None
+    return leaf_field(part), part.terms[0].lower(), d, bool(part.starts_with)
 
 
 def clamped_distance(part) -> int:
@@ -220,7 +239,7 @@ def prefetch_fuzzy_matches(index, specs) -> Dict[Tuple[str, str, int, bool], tup
     its prefix distance, every other spec on its distance. Returns
     ``{spec: (term_ids, distances, is_prefix)}``, term ids ascending.
     Specs longer than 31 chars are left to the host loop of
-    :func:`get_term_ids_in_field`, as in the reference."""
+    :func:`match_term_ids`, as in the reference."""
     launches: Dict[Tuple[str, bool], list] = {}
     for field, lower_term, distance, starts_with in sorted(set(specs)):
         if len(lower_term) <= MAX_QUERY_CHARS - 1:
@@ -448,14 +467,47 @@ def match_term_ids(index, part, fuzzy_matches):
     return matched, aligned_dists, aligned_prefixes
 
 
-def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.ndarray]:
-    """The leaf's matched term ids (ascending) and their f32 scores, from
+def search_field(
+    index, part, fuzzy_matches, *, store_term_id_hits: bool = False, store_term_texts: bool = False,
+    return_term: bool = False, return_term_lowercase: bool = False,
+) -> FieldSearchResult:
+    """The leaf's field search (``get_term_ids_in_field``, ``:404-546``): its
+    matched term ids (ascending) and their f32 scores, from
     :func:`match_term_ids`. Leaf ``boost`` multiplies the scores, leaf
-    ``top`` (+ ``skip``) keeps the best-scoring terms, and a ``token_value``
-    boost then applies per term (search_field.rs:391-395)."""
+    ``top`` (+ ``skip``) keeps the best-scoring terms, and a
+    ``token_value`` boost then applies per term (search_field.rs:391-395).
+
+    On request, beside them: the kept terms' texts, as stored or lowercased
+    (``return_term``, ``return_term_lowercase``, or ``store_term_texts``),
+    in ``terms``; ``{path: {first term: kept ids}}`` in
+    ``term_id_hits_in_field`` (``store_term_id_hits``) and ``{path: kept
+    texts}`` in ``term_text_in_field`` (``store_term_texts``)."""
+    path = leaf_path(part)
+    result = FieldSearchResult(path=path, request=part)
     matched, aligned_dists, aligned_prefixes = match_term_ids(index, part, fuzzy_matches)
-    if not len(matched):
-        return np.empty(0, np.int64), np.empty(0, np.float32)
+    if len(matched):
+        result.term_ids, result.term_scores = _scored(index, part, matched, aligned_dists, aligned_prefixes)
+    if return_term or store_term_texts:
+        terms = index.get_dictionary(leaf_field(part)).terms
+        for tid in result.term_ids.tolist():
+            result.terms[tid] = terms[tid].lower() if return_term_lowercase else terms[tid]
+    if store_term_id_hits and len(result.term_ids):
+        result.term_id_hits_in_field[path] = {part.terms[0]: result.term_ids.tolist()}
+    if store_term_texts and result.terms:
+        result.term_text_in_field[path] = list(result.terms.values())
+    return result
+
+
+def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.ndarray]:
+    """The leaf's matched term ids (ascending) and their f32 scores
+    (:func:`search_field` without its metadata)."""
+    res = search_field(index, part, fuzzy_matches)
+    return res.term_ids, res.term_scores
+
+
+def _scored(index, part, matched, aligned_dists, aligned_prefixes):
+    """The matched ids' scores, then the leaf's boost, ``top`` and
+    ``token_value`` boost -> (kept ids, their scores)."""
     dictionary = index.get_dictionary(leaf_field(part))
     lower_term = part.terms[0].lower()
     starts_with = bool(part.starts_with)
@@ -497,12 +549,10 @@ def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.nd
     return matched, scores
 
 
-def _leaf_fuzzy(index, part):
+def leaf_fuzzy(index, part):
     """:func:`prefetch_fuzzy_matches` for one leaf alone."""
-    d = clamped_distance(part)
-    if d == 0 or part.is_regex:
-        return {}
-    return prefetch_fuzzy_matches(index, [(leaf_field(part), part.terms[0].lower(), d, bool(part.starts_with))])
+    spec = fuzzy_spec(part)
+    return {} if spec is None else prefetch_fuzzy_matches(index, [spec])
 
 
 def resolve_token_hits_to_text_id(index, request, result, add_snippets: bool = False):
@@ -560,9 +610,7 @@ def highlight_field(index, request):
     highlighted -> ``[(snippet, score, text id)]`` by score, then ``skip``
     and ``top``."""
     request.terms = [normalize_text(t) for t in request.terms]
-    term_ids, term_scores = get_term_ids_in_field(index, request, _leaf_fuzzy(index, request))
-    path = request.path if request.path.endswith(TEXTINDEX) else request.path + TEXTINDEX
-    result = FieldSearchResult(path=path, request=request, term_ids=term_ids, term_scores=term_scores)
+    result = search_field(index, request, leaf_fuzzy(index, request))
     resolve_token_hits_to_text_id(index, request, result, add_snippets=True)
     out = []
     for tid, score in zip(result.term_ids, result.term_scores):

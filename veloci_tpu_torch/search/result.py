@@ -1,7 +1,8 @@
 """Search results, with the field names of ``veloci_tpu/search/result.py``:
 ``Hit``, ``SearchResult``, ``DocWithHit`` and ``SearchResultWithDoc``
-(``:76-108``), and the part of ``FieldSearchResult`` that a field's
-snippet search reads (``field_search.resolve_token_hits_to_text_id``)."""
+(``:76-108``), and ``FieldSearchResult``, a leaf's field search with the
+metadata that why-found, text locality and suggest read
+(``field_search.search_field``)."""
 
 from __future__ import annotations
 
@@ -26,15 +27,19 @@ class Hit:
 
 @dataclass
 class FieldSearchResult:
-    """One leaf's matched term ids and their scores on one field, and the
-    snippets of the texts they resolve to (reference SearchFieldResult,
-    src/search/result/field_result.rs:6-53)."""
+    """One leaf's matched term ids and their scores on one field, what was
+    asked for beside them, and the snippets of the texts they resolve to
+    (reference SearchFieldResult, src/search/result/field_result.rs:6-53)."""
 
     path: str = ""  # field path incl. .textindex
     request: Any = None  # RequestSearchPart
     term_ids: np.ndarray = field(default_factory=lambda: np.empty(0, np.int64))
     term_scores: np.ndarray = field(default_factory=lambda: np.empty(0, np.float32))
+    terms: Dict[int, str] = field(default_factory=dict)  # kept term id -> its text
     highlight: Dict[int, str] = field(default_factory=dict)  # text id -> snippet
+    # path -> {the leaf's first term: kept term ids} (why_found, text locality)
+    term_id_hits_in_field: Dict[str, Dict[str, List[int]]] = field(default_factory=dict)
+    term_text_in_field: Dict[str, List[str]] = field(default_factory=dict)  # path -> kept texts
 
 
 @dataclass
