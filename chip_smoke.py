@@ -93,6 +93,31 @@ Phases (any failure is an exception and a non-zero exit):
              p99 of each mix and of the why_found document reads; every
              answer, its why_found metadata, its documents and every
              suggestion list are checked against the CPU plain path.
+             The seventh main path, ``server``: the port's server on the
+             saved index in a child process (``python -m
+             veloci_tpu_torch.cli serve smoke_index --device cuda`` on a
+             free loopback port; its exit, or no answer within
+             SERVER_START_S, fails the run; it is stopped at the end of
+             the phase), over HTTP: the ``query_string`` mix's first 256
+             strings as ``GET /search?query=`` one at a time and then from
+             32 client threads at once (the server folds them into
+             batches; ``GET /stats`` before and after gives the fold
+             counts), the ``generic`` mix's first 256 requests as one
+             ``POST /search_batch``, the suggest mix's 256 prefixes as
+             ``GET /suggest`` from 32 threads, 64 ``deep_tree`` requests
+             with ``explain`` and ``select`` title as ``POST /search``, 16
+             ``POST /search_query_params/explain_plan`` of ``generic``
+             requests, and ``GET /_id`` and ``/_idtree`` of the top hits of
+             32 of the sequential answers. p50 / p99 of each, client clock;
+             wall and requests/s of the bursts; the child's load and
+             warmup seconds (its ``database ...`` line). Every body
+             (without ``execution_time_ns``) must equal the direct call on
+             this process's index on the card, and the explained ones the
+             CPU plain path's. Then the same traffic against an in-process
+             server on this process's index, the launch counters set to 0
+             just before and read just after (the path's launches: B1, the
+             fused select, B3 and B7 must launch); its concurrent search
+             burst is profiled in phase 8.
 5. dense   -- kernel B7 (``csrc/dense_resolve.cu``), its direct path and
              its keys path, each against its plain version on the card,
              bit-equal, at the main path's largest multi-term leaf (its
@@ -140,7 +165,9 @@ Phases (any failure is an exception and a non-zero exit):
              B7's, B8's and the fused select's device times; one batch of
              each mix (32 lone requests of each executor mix, of the
              regex mix and of the lone feature mixes; the why_found and
-             the suggest batch) under torch.profiler: the device's busy share of the
+             the suggest batch; the server path's concurrent search
+             burst, sent to the in-process server) under torch.profiler:
+             the device's busy share of the
              wall time and its largest kernels; and the single-query banded
              launch (B2's old entry) timed by its kernel's own device
              events, beside its CUDA-event time.
@@ -1200,6 +1227,363 @@ def main_path_shape(sweep, calls, baseline, report):
     return main
 
 
+# ---------------------------------------------------------------- server path
+SERVER_DB = "smoke_index"  # the saved index's directory name, under build/
+SERVER_DEVICE = "cuda"  # the child server's --device
+SERVER_THREADS = 32  # client threads of the concurrent bursts
+SERVER_EXPLAIN_REQUESTS = 64
+SERVER_PLANS = 16
+SERVER_DOC_READS = 32
+SERVER_START_S = 240  # the child's import, CUDA start, load and warmup
+SERVER_REQUEST_S = 120
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(base: str, method: str, path: str, body=None):
+    """One request -> (status, body text, seconds on the client's clock)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode("utf-8")
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=SERVER_REQUEST_S) as resp:
+            status, text = resp.status, resp.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        status, text = e.code, e.read().decode("utf-8")
+    return status, text, time.perf_counter() - t0
+
+
+def burst(base: str, calls, threads: int = SERVER_THREADS):
+    """``calls`` [(method, path, body)] from ``threads`` client threads at
+    once -> (their (status, text, seconds) in order, wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        out = list(pool.map(lambda c: http(base, *c), calls))
+    return out, time.perf_counter() - t0
+
+
+def request_json(req) -> dict:
+    """A port ``Request`` as the JSON ``Request.from_dict`` reads."""
+    import dataclasses
+
+    def fields(obj):
+        return {k: v for k, v in dataclasses.asdict(obj).items() if v is not None and k != "explain"}
+
+    def node(n):
+        if n.kind == "search":
+            return {"search": fields(n.part)}
+        out = {"queries": [node(q) for q in n.queries]}
+        if n.options:
+            out["options"] = n.options
+        return {n.kind: out}
+
+    out = {"top": req.top, "skip": req.skip, "why_found": req.why_found,
+           "text_locality": req.text_locality, "explain": req.explain, "select": req.select}
+    if req.search_req is not None:
+        out["search_req"] = node(req.search_req)
+    if req.filter is not None:
+        out["filter"] = node(req.filter)
+    for key in ("suggest", "boost_term", "boost"):
+        if getattr(req, key):
+            out[key] = [fields(p) for p in getattr(req, key)]
+    if req.facets:
+        out["facets"] = [{"field": f.field, "top": f.top} for f in req.facets]
+    if req.phrase_boosts:
+        out["phrase_boosts"] = [{"search1": fields(pb.search1), "search2": fields(pb.search2)}
+                                for pb in req.phrase_boosts]
+    return out
+
+
+def body_of(obj):
+    """A JSON value without ``execution_time_ns``, as a server sends it."""
+    obj = json.loads(json.dumps(obj, ensure_ascii=False))
+
+    def strip(o):
+        if isinstance(o, dict):
+            return {k: strip(v) for k, v in o.items() if k != "execution_time_ns"}
+        if isinstance(o, list):
+            return [strip(v) for v in o]
+        return o
+    return strip(obj)
+
+
+def server_traffic(vt, index, query_strings, generic, suggest_specs, deep_trees, make):
+    """The server path's requests, by phase, as (method, path, body)."""
+    from urllib.parse import quote
+
+    db = f"/{SERVER_DB}"
+    searches = [("GET", f"{db}/search?query={quote(s)}", None) for s in query_strings]
+    suggests = []
+    for spec in suggest_specs:
+        if "suggest_query" in spec:
+            suggests.append(("GET", f"{db}/suggest?query={quote(spec['suggest_query'])}&levenshtein=1", None))
+        else:
+            suggests.append(("GET", f"{db}/suggest?query={quote(spec['suggest'][0]['terms'][0])}", None))
+    batch = [request_json(make(d, index)) for d in generic]
+    explained = [("POST", f"{db}/search", dict(d, explain=True, select=["title"]))
+                 for d in deep_trees[:SERVER_EXPLAIN_REQUESTS]]
+    plans = [("POST", f"{db}/search_query_params/explain_plan", d["generator"]) for d in generic[:SERVER_PLANS]]
+    return {"search_sequential": searches, "search_concurrent": searches,
+            "search_batch": [("POST", f"{db}/search_batch", batch)], "suggest_concurrent": suggests,
+            "explain": explained, "explain_plan": plans}
+
+
+def direct_answer(vt, index, method, path, body):
+    """What the server must answer for one request, from the port's direct
+    calls on ``index``: a JSON value, or the plan's text."""
+    from urllib.parse import parse_qs, unquote, urlparse
+
+    from veloci_tpu_torch.search.read_document import read_data
+
+    url = urlparse(path)
+    route = url.path.split("/", 2)[2]
+    qs = {k: v[0] for k, v in parse_qs(url.query).items()}
+    if route == "search" and method == "GET":
+        req = vt.search_query(index, vt.SearchQueryGeneratorParameters(search_term=qs["query"]))
+        return body_of(vt.search_to_result_with_doc(index, vt.search(req, index), req.select).to_dict())
+    if route == "search":
+        req = vt.Request.from_dict(body)
+        return body_of(vt.search_to_result_with_doc(index, vt.search(req, index), req.select).to_dict())
+    if route == "search_batch":
+        reqs = [vt.Request.from_dict(b) for b in body]
+        return body_of([vt.search_to_result_with_doc(index, r, q.select).to_dict()
+                        for r, q in zip(vt.search_batch(reqs, index), reqs)])
+    if route == "suggest":
+        lev = int(qs["levenshtein"]) if "levenshtein" in qs else None
+        return body_of(vt.suggest(index, vt.suggest_query(qs["query"], index, None, None, lev, None, None)))
+    if route == "search_query_params/explain_plan":
+        return vt.explain_plan(vt.search_query(index, vt.SearchQueryGeneratorParameters.from_dict(body)), index)
+    if route.startswith("_id/"):
+        return body_of(json.loads(index.doc_loader.get_doc(int(unquote(route[4:])))))
+    if route.startswith("_idtree/"):
+        return body_of(read_data(index, int(route[8:]), index.get_all_fields()))
+    raise AssertionError(f"no direct answer for {path}")
+
+
+def plan_graph(text: str):
+    """A plan's graph with each node named by its label: the sorted node
+    labels, the sorted (source label, target label) edges, and the line
+    count. The query generator takes a query's phrase pairs from a set, so
+    two processes (two string hash seeds) list one request's phrase boosts,
+    and so number the plan's field-search and phrase nodes, in other
+    orders; the answers do not depend on it (every pair's factor is 5)."""
+    lines = text.split("\n")
+    label = {}
+    for line in lines:
+        if " [label=" in line:
+            name, rest = line.strip().split(" [label=", 1)
+            label[name] = rest
+    edges = []
+    for line in lines:
+        if " -> " in line and " [label=" not in line:
+            src, dst = line.strip().rstrip(";").split(" -> ")
+            edges.append((label.get(src, src), label.get(dst, dst)))
+    return sorted(label.values()), sorted(edges), len(lines)
+
+
+def check_answers(name, calls, replies, want):
+    """Each reply 200 and equal to its direct answer (a plan: the same
+    graph, :func:`plan_graph`)."""
+    for (method, path, _body), (status, text, _s), expect in zip(calls, replies, want):
+        if status != 200:
+            raise AssertionError(f"server {name}: {method} {path} answered {status}: {text[:300]}")
+        if isinstance(expect, str):
+            same = plan_graph(text) == plan_graph(expect)
+        else:
+            same = body_of(json.loads(text)) == expect
+        if not same:
+            raise AssertionError(f"server {name}: {method} {path} differs from the direct call")
+
+
+def drive_server(base, traffic, stats=True):
+    """The server path's traffic against one server, in order: the
+    sequential searches, the concurrent search burst, the batch, the
+    concurrent suggest burst, the explained searches, the plans, then the
+    document reads of the sequential answers' top hits. -> (replies by
+    phase, the calls by phase, wall seconds by phase, fold counters)."""
+    replies, walls, folds = {}, {}, {}
+    calls = dict(traffic)
+    for name in ("search_sequential", "explain", "explain_plan", "search_batch"):
+        t0 = time.perf_counter()
+        replies[name] = [http(base, *c) for c in calls[name]]
+        walls[name] = time.perf_counter() - t0
+    for name in ("search_concurrent", "suggest_concurrent"):
+        before = json.loads(http(base, "GET", "/stats")[1])["paths"] if stats else {}
+        replies[name], walls[name] = burst(base, calls[name])
+        after = json.loads(http(base, "GET", "/stats")[1])["paths"] if stats else {}
+        folds[name] = {k: after.get(k, 0) - before.get(k, 0) for k in ("fold_dispatches", "fold_folded_requests",
+                                                                    "fold_retried_alone")}
+    ids = []
+    for status, text, _s in replies["search_sequential"]:
+        data = json.loads(text)["data"] if status == 200 else []
+        if data and data[0]["hit"]["id"] not in ids:
+            ids.append(data[0]["hit"]["id"])
+    ids = ids[:SERVER_DOC_READS]
+    calls["documents"] = [("GET", f"/{SERVER_DB}/{kind}/{i}", None) for i in ids for kind in ("_id", "_idtree")]
+    t0 = time.perf_counter()
+    replies["documents"] = [http(base, *c) for c in calls["documents"]]
+    walls["documents"] = time.perf_counter() - t0
+    return replies, calls, walls, folds
+
+
+def start_server(index_dir):
+    """``python -m veloci_tpu_torch.cli serve`` on the saved index, on the
+    card, on a free loopback port -> (process, base url, its load line,
+    seconds until it answered)."""
+    import os
+
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veloci_tpu_torch.cli", "serve", SERVER_DB, "--device", SERVER_DEVICE,
+         "--host", "127.0.0.1", "--port", str(port)],
+        cwd=str(index_dir.parent), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    lines = []
+    threading_reader(proc, lines)
+    base = f"http://127.0.0.1:{port}"
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"the server exited with {proc.returncode}: {''.join(lines)[-2000:]}")
+        if time.perf_counter() - t0 > SERVER_START_S:
+            proc.kill()
+            raise AssertionError(f"the server did not answer within {SERVER_START_S} s: {''.join(lines)[-2000:]}")
+        try:
+            if http(base, "GET", "/version")[0] == 200:
+                break
+        except OSError:
+            time.sleep(0.2)
+    ready_s = time.perf_counter() - t0
+    load_line = next((line for line in lines if line.startswith("database ")), "")
+    return proc, base, load_line.strip(), ready_s
+
+
+def threading_reader(proc, lines):
+    """Collect the child's output lines on a thread of their own."""
+    import threading
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+
+    threading.Thread(target=read, daemon=True).start()
+
+
+def stop_server(proc):
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=15)
+
+
+def latency_row(replies, wall=None):
+    ms = np.array([s for _st, _t, s in replies]) * 1e3
+    row = dict(requests=len(ms), p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+               samples_ms=ms.tolist())
+    if wall is not None:
+        row.update(wall_s=wall, requests_per_s=len(ms) / wall)
+    return row
+
+
+def server_phase(vt, index, index_dir, cpu_index, traffic, kernel_fns, postings, report):
+    """The ``server`` path: the port's server in a child process on the
+    card, over HTTP; every answer equal to the direct call's, the explained
+    entries equal to the CPU plain path's; then the same traffic against an
+    in-process server on this process's index, the kernels' launch counters
+    set to 0 just before and read just after. Returns the launches and the
+    in-process server's base url (for the profile phase) and server."""
+    from veloci_tpu_torch import server as port_server
+
+    t_phase = time.perf_counter()
+    proc, base, load_line, ready_s = start_server(index_dir)
+    try:
+        replies, calls, walls, folds = drive_server(base, traffic)
+    finally:
+        stop_server(proc)
+    log(f"server (child process, cli serve --device {SERVER_DEVICE}): answering after {ready_s:.2f} s; {load_line}")
+    row = {"ready_s": ready_s, "load_line": load_line, "folds": folds}
+    for name in replies:
+        row[name] = latency_row(replies[name], walls[name] if name.endswith("concurrent") else None)
+    row["search_batch"]["batch_ms"] = walls["search_batch"] * 1e3
+    row["explain_plan"]["total_ms"] = walls["explain_plan"] * 1e3
+    # the direct calls on this process's index, after the child's traffic
+    t0 = time.perf_counter()
+    want = {name: [direct_answer(vt, index, *c) for c in calls[name]] for name in calls}
+    direct_s = time.perf_counter() - t0
+    for name in calls:
+        check_answers(name, calls[name], replies[name], want[name])
+    explained = 0
+    for (_m, _p, body), (_st, text, _s) in zip(calls["explain"], replies["explain"]):
+        req = vt.Request.from_dict(body)
+        cpu = vt.search_to_result_with_doc(cpu_index, vt.search(req, cpu_index), req.select)
+        got = body_of(json.loads(text))
+        if got != body_of(cpu.to_dict()):
+            raise AssertionError(f"server explain != the CPU plain path for {body}")
+        explained += sum(bool(d.get("explain")) for d in got["data"])
+    if not explained:
+        raise AssertionError("no explained hit came back")
+    n_calls = sum(len(v) for v in calls.values())
+    log(f"server: {n_calls} requests, every answer equal to the direct call on the card "
+        f"({direct_s:.1f} s); {explained} explained hits equal to the CPU plain path")
+    # the same traffic against an in-process server on this index, counted
+    port_server.PERSISTENCES[SERVER_DB] = index
+    srv = port_server.make_server("127.0.0.1", 0, device=SERVER_DEVICE)
+    import threading
+
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    local = f"http://127.0.0.1:{srv.server_address[1]}"
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    postings.dense_resolve.direct_launches = 0
+    routes0 = dict(index.path_counts)
+    local_replies, local_calls, _w, _f = drive_server(local, traffic)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    launches["dense_resolve_direct"] = postings.dense_resolve.direct_launches
+    routes = {k: v - routes0.get(k, 0) for k, v in index.path_counts.items() if v != routes0.get(k, 0)}
+    for name in local_calls:
+        expect = (want[name] if local_calls[name] == calls[name]
+                  else [direct_answer(vt, index, *c) for c in local_calls[name]])
+        check_answers(f"in-process {name}", local_calls[name], local_replies[name], expect)
+    row.update(launches=launches, routes=routes, phase_s=time.perf_counter() - t_phase)
+    report["slice"]["server"] = row
+    log(f"main path server launches (in-process server, same traffic): {launches}; routes: {routes}")
+    for name in ("search_sequential", "search_concurrent", "suggest_concurrent", "explain", "documents"):
+        r = row[name]
+        extra = f", wall {r['wall_s']:.3f} s, {r['requests_per_s']:.1f} requests/s" if "wall_s" in r else ""
+        log(f"server {name:>18}: x {r['requests']}: p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms{extra}")
+    log(f"server search_batch of {len(traffic['search_batch'][0][2])}: {row['search_batch']['batch_ms']:.3f} ms; "
+        f"explain_plan x {len(traffic['explain_plan'])}: {row['explain_plan']['total_ms']:.3f} ms in all; "
+        f"folds {folds}; phase {row['phase_s']:.1f} s")
+    for k in ("levenshtein_sweep_banded_batch", "levenshtein_select_banded", "levenshtein_sweep_full_batch",
+              "dense_resolve"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the main path server")
+    if not folds["search_concurrent"].get("fold_folded_requests"):
+        raise AssertionError("the concurrent search burst folded no requests")
+    for name, counts in folds.items():
+        if counts.get("fold_retried_alone"):
+            raise AssertionError(f"server {name}: {counts['fold_retried_alone']} folded requests were answered "
+                                 "again alone after their batch raised")
+    return launches, local, srv
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--compare-full", type=Path, default=None,
@@ -1546,6 +1930,16 @@ def main() -> None:
     log(f"slice why_found document reads (top 10, half select {FEATURE_SELECT}, half whole): "
         f"x {len(ms)}: p50 {np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms")
 
+    # ---- the server path: the port's server in a child process, over HTTP
+    traffic = server_traffic(vt, index, mixes["query_string"][0], mixes["generic"][0], feat_mixes["suggest"],
+                             ex_mixes["deep_tree"], make)
+    path_launches["server"], server_url, local_server = server_phase(
+        vt, index, index_dir, cpu_index, traffic, kernel_fns, postings, report)
+    launches = {k: sum(p[k] for p in path_launches.values())
+                for k in [*kernel_fns, "dense_resolve_direct"]}
+    log(f"main path launches, the server path's included: {launches}")
+    del cpu_index
+
     # ---- kernel B7 at the main path's largest multi-term leaf and on a 6M-document plane
     def leaf_rows(call):
         leaf = postings.dense_resolve_args(index, *call)
@@ -1609,7 +2003,9 @@ def main() -> None:
         name: ([make(d, index) for d in feat_mixes[name]], lambda reqs, name=name: answer(name, reqs, index))
         for name in ("why_found", "suggest")
     })
+    profiled["server_concurrent"] = (traffic["search_concurrent"], lambda calls: burst(server_url, calls))
     profile_phase(profiled, report)
+    local_server.shutdown()
     enc, n_chars = levenshtein.encode_query(mutate(str(title_words[len(title_words) // 3]), 1, rng))
     b2_query = torch.from_numpy(enc).cuda()
     b2_qlen = torch.tensor([n_chars], dtype=torch.int32, device="cuda")

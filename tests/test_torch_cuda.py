@@ -613,3 +613,89 @@ def test_features_on_card_equal_cpu(card):
                                    "top": 10}))
     got = suggest_batch(on_card, sugg)
     assert all(got) and got == suggest_batch(on_cpu, sugg)
+
+
+@pytest.mark.cuda
+def test_explain_and_server_on_card_equal_cpu(card, tmp_path):
+    """Explained requests (trees, a 1:n Log10 boost, a Log10 column, a
+    filter) and ``explain_plan`` on the card and on the CPU: identical
+    entries and plans; then the port's server on the card, 32 requests from
+    8 threads at once (explained searches, query strings, suggests, a
+    batch), each body equal to the CPU server's but ``execution_time_ns``.
+    The plans' ``path`` nodes differ only where the CPU's says that the
+    kernels' plain versions ran."""
+    import json
+    import threading
+    import urllib.request
+
+    from veloci_tpu_torch import explain_plan
+    from veloci_tpu_torch import server as port_server
+
+    rng = np.random.default_rng(41)
+    vocab = [f"w{i:x}{'abcdefgh'[i % 8] * (1 + i % 7)}" for i in range(800)]
+    docs = "\n".join(
+        '{"title": "%s", "cat": "c%d", "pop": %d, "parts": [{"name": "%s", "rank": %d}]}'
+        % (" ".join(rng.choice(vocab, size=5)), i % 16, rng.integers(0, 1000), rng.choice(vocab[:50]),
+           rng.integers(0, 9))
+        for i in range(3000)
+    )
+    config = ('["*GLOBAL*"]\nfeatures = ["All"]\n["cat"]\nfacet = true\n["pop".boost]\nboost_type = "f32"\n'
+              '["parts[].rank".boost]\nboost_type = "f32"\n')
+    pers = Persistence.from_built(create_indices_from_str(docs, config))
+    on_cpu = TorchIndex.from_persistence(pers, "cpu")
+    on_card = TorchIndex.from_persistence(pers, card)
+
+    def leaf(t, path="title", **kw):
+        return {"search": dict({"terms": [t], "path": path}, **kw)}
+
+    dicts = [
+        {"search_req": {"or": {"queries": [leaf("w1bb"), leaf("w2ccc", levenshtein_distance=1), leaf("w1bb")]}},
+         "explain": True},
+        {"search_req": {"or": {"queries": [{"and": {"queries": [leaf("w1", starts_with=True),
+                                                                 leaf("w2", starts_with=True)]}}, leaf("w10")]}},
+         "explain": True, "boost": [{"path": "pop", "boost_fun": "Log10", "param": 1}]},
+        {"search_req": leaf(vocab[3], "parts[].name", options={"explain": True}),
+         "boost": [{"path": "parts[].rank", "boost_fun": "Log10", "param": 1}]},
+        {"search_req": leaf("w1", starts_with=True, levenshtein_distance=1), "explain": True,
+         "filter": leaf("c3", "cat"), "top": 5, "skip": 2},
+    ]
+    for d in dicts:
+        for answer in (lambda r, ix: search(r, ix), lambda r, ix: search_batch([r], ix)[0]):
+            a, b = answer(Request.from_dict(d), on_card), answer(Request.from_dict(d), on_cpu)
+            assert a.data and [(h.id, h.score) for h in a.data] == [(h.id, h.score) for h in b.data], d
+            assert json.dumps(a.explain) == json.dumps(b.explain) and a.explain, d
+        plan_cpu = explain_plan(Request.from_dict(d), on_cpu)  # its path says the plain versions ran
+        assert "kernels (plain versions on cpu): " in plan_cpu
+        assert explain_plan(Request.from_dict(d), on_card) == plan_cpu.replace(
+            "kernels (plain versions on cpu): ", "kernels: ")
+
+    pers.save(str(tmp_path / "db"))
+    bodies = {}
+    for device in ("cpu", "cuda"):
+        port_server.PERSISTENCES.clear()
+        port_server.BASE_DIR = str(tmp_path)
+        srv = port_server.make_server("127.0.0.1", 0, device=device)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}/db"
+
+        def call(c):
+            method, path, body = c
+            data = None if body is None else json.dumps(body).encode()
+            req = urllib.request.Request(base + path, data=data, method=method)
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                out = json.loads(resp.read())
+            drop = lambda o: ({k: drop(v) for k, v in o.items() if k != "execution_time_ns"}  # noqa: E731
+                              if isinstance(o, dict) else [drop(v) for v in o] if isinstance(o, list) else o)
+            return drop(out)
+
+        calls = ([("POST", "/search", d) for d in dicts]
+                 + [("GET", f"/search?query={w}%20{v}", None) for w, v in zip(vocab[:8], vocab[8:16])]
+                 + [("GET", f"/suggest?query={w[:3]}", None) for w in vocab[16:24]]
+                 + [("POST", "/search_batch", dicts + [{"search_req": leaf("w1bb")}])]) * 2
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+            bodies[device] = list(pool.map(call, calls))
+        index = port_server.PERSISTENCES["db"]
+        assert index.device.type == device
+        srv.shutdown()
+    port_server.PERSISTENCES.clear()
+    assert bodies["cuda"] == bodies["cpu"]

@@ -14,7 +14,7 @@ Tolerance: ids, order, ``num_hits``, facet lists and raised error types
 exact. Scores are bit-equal where both sides take the same f32 steps in the
 same order, which the dense executors do for unions, intersections, 1:n
 boosts (their factors taken with numpy on both sides) and the phrase
-factor. A boost column with Log10 or Log2 (``torch.log10`` against XLA's)
+factor. A boost column with Log10 or Log2 (numpy's f32 log against XLA's)
 is held to a relative 1e-6 (``APPROX``). Against the tree route, scores
 are held to a relative 1e-6 throughout: the two routes sum unions of three
 or more values and apply the phrase factor in other orders (ROADMAP C2);
@@ -159,7 +159,7 @@ CASES = {
     "field_without_postings": _req(_or(_leaf("male", "gender"), _leaf("majestät"))),
 }
 NAMES = list(CASES)
-# a boost column with Log10 / Log2: torch.log10 against XLA's, within 1e-6
+# a boost column with Log10 / Log2: numpy's f32 log against XLA's, within 1e-6
 APPROX = {"one_n_field1", "boost_column_on_deep"}
 # a flat tree with a node's 1:n boost option: the reference's fused tree
 # route takes it and drops the option (its _node_groups reads no node

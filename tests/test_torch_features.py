@@ -474,12 +474,17 @@ def test_suggest_paths_counted(all_corpus):
 
 
 def test_explain_still_raises_naming_a13b(all_corpus):
+    """Explain is answered on both entry points: on the request or in a
+    leaf's options, with why_found beside it, with entries for every hit
+    (their values are tests/test_torch_explain.py's). The name is the one
+    the test had while explain raised; it is kept so the test's record
+    carries on."""
     index = all_corpus["port_built"].index
     for spec in ({"search_req": _leaf("guter"), "explain": True},
                  {"search_req": _leaf("guter", options={"explain": True}), "why_found": True}):
-        for call in (lambda r: vt.search(r, index), lambda r: vt.search_batch([r], index)):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md A13b"):
-                call(vt.Request.from_dict(spec))
+        for call in (lambda r: vt.search(r, index), lambda r: vt.search_batch([r], index)[0]):
+            res = call(vt.Request.from_dict(spec))
+            assert res.data and set(res.explain) == {h.id for h in res.data}, spec
 
 
 # ---------------------------------------------------------------- B10, the term-boost factor

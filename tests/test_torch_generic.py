@@ -8,7 +8,7 @@ and the port against ``tests/goldens.json``.
 Tolerance: ids, order, ``num_hits`` and facet lists exact. Scores are
 bit-equal where the formula and the summation order are the same
 (Multiply, Add, Replace, ``skip_when_score``, filters, the phrase factor
-5 ** g, facet counts). Log10 / Log2 and expression boosts (``torch.log10``
+5 ** g, facet counts). Log10 / Log2 and expression boosts (numpy's f32 log
 and XLA's may differ by one ulp) and unions of three or more values (the
 reference's associative scan) are held to a relative 1e-6: the cases in
 ``APPROX``; their ids and order are still exact, no two of their scores

@@ -1,9 +1,10 @@
 """The port stands alone: it never imports ``jax`` nor anything of the JAX
 package ``veloci_tpu/``, runs from a tree that holds only the port, the
 native indexer's source and ``chip_smoke.py`` (its search, a regex request,
-a document read, warmup, a boost_term / text_locality / why_found request
-and suggest included), and refuses a CUDA device it does not
-have. ``chip_smoke.py`` refuses to run without a card, in the
+a document read, warmup, a boost_term / text_locality / why_found request,
+suggest, an explained request, ``explain_plan``, and its server, stats and
+CLI, imported and answering over HTTP, included), and refuses a CUDA device
+it does not have. ``chip_smoke.py`` refuses to run without a card, in the
 repository, in that tree and alone."""
 
 import ast
@@ -27,6 +28,7 @@ SCRIPT = r"""
 import sys
 if sys.argv[1] == "block":
     sys.modules["jax"] = None
+    sys.modules["veloci_tpu"] = None
 import tempfile
 from pathlib import Path
 import numpy as np
@@ -82,11 +84,31 @@ assert res.num_hits > 0 and res.data and res.why_found_terms, res
 assert search_batch([Request.from_dict(feat)], index)[0].data == res.data
 sugg = suggest_batch(index, [suggest_query("hel", index), suggest_query("wor", index, levenshtein=1)])
 assert all(sugg) and suggest(index, suggest_query("hel", index)) == sugg[0], sugg
+explained = search(Request.from_dict({"search_req": {"or": {"queries": [leaf("hello"), leaf("wrd", levenshtein_distance=1)]}},
+                                      "explain": True}), index)
+assert explained.data and set(explained.explain) == {h.id for h in explained.data}, explained
+from veloci_tpu_torch import explain_plan
+assert "digraph" in explain_plan(Request.from_dict({"search_req": leaf("hello")}), index)
+import json, threading, urllib.request
+import veloci_tpu_torch.cli, veloci_tpu_torch.search.explain
+from veloci_tpu_torch import server
+from veloci_tpu_torch.search import stats
+with tempfile.TemporaryDirectory() as d:
+    pers.save(str(Path(d) / "db"))
+    server.BASE_DIR = d
+    srv = server.make_server("127.0.0.1", 0, device="cpu")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/db/search?query=hello&explain=true"
+    with urllib.request.urlopen(url, timeout=120) as resp:
+        body = json.loads(resp.read())
+    srv.shutdown()
+assert body["data"] and all(d["explain"] for d in body["data"]), body
+assert stats.snapshot()["fallback_reasons"].get("explain"), stats.snapshot()
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (m == "jax" or m.startswith("jax."))]
 assert not loaded, loaded
-assert sys.argv[1] != "block" or sys.modules["jax"] is None
+assert sys.argv[1] != "block" or sys.modules["jax"] is None and sys.modules["veloci_tpu"] is None
 assert "jax" not in sys.modules or sys.argv[1] == "block"
-assert "veloci_tpu" not in sys.modules and not any(m.startswith("veloci_tpu.") for m in sys.modules)
+assert sys.modules.get("veloci_tpu") is None and not any(m.startswith("veloci_tpu.") for m in sys.modules)
 ref_dir = Path(sys.argv[2]).resolve() / "veloci_tpu"
 inside = [m for m, mod in list(sys.modules.items())
           if getattr(mod, "__file__", None) and Path(mod.__file__).resolve().is_relative_to(ref_dir)]

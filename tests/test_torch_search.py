@@ -272,16 +272,17 @@ def test_sweep_entry_points_run_on_cpu(built):
 # ask for snippets; their answers equal the reference executor's, and a
 # boost on "nr" (no boost column) raises its VelociError. A why_found
 # request rides the batched route ("batched"): its answer, why_found_terms
-# included, equals the reference's search. explain raises
-# NotImplementedError naming ROADMAP A13b.
+# included, equals the reference's search. explain, on the request or in
+# a leaf's options, goes to the executor too (its entries are
+# tests/test_torch_explain.py's).
 OUT_OF_SLICE = {
     "request_boost": (dict(_leaf("w1bb"), boost=[{"path": "nr", "boost_fun": "Log10"}]), "VelociError"),
     "facets": (dict(_leaf("w1bb"), facets=[{"field": "nr"}]), "executor"),
     "why_found": (dict(_leaf("w1bb"), why_found=True), "batched"),
-    "explain": (dict(_leaf("w1bb"), explain=True), "A13b"),
+    "explain": (dict(_leaf("w1bb"), explain=True), "executor"),
     "regex": (_leaf("w1.*", is_regex=True), "executor"),
     "snippet": (_leaf("w1bb", snippet=True), "executor"),
-    "leaf_options": (_leaf("w1bb", options={"explain": True}), "A13b"),
+    "leaf_options": (_leaf("w1bb", options={"explain": True}), "executor"),
     "two_terms": ({"search_req": {"search": {"terms": ["w1bb", "b"], "path": "title"}}}, "executor"),
     "four_alternations": (_or(_and(_or(_and(_leaf("w1bb"), _leaf("w2ccc")), _leaf("w0a")), _leaf("w10")),
                               _leaf("w3dddd")), "executor"),

@@ -27,7 +27,11 @@ requests (:func:`suggest_query` builds one from a prefix), and
 Levenshtein sweeps, the regex DFA walk and the executor's dense posting
 resolve are hand-written CUDA kernels (``csrc/banded_levenshtein.cu``,
 ``csrc/full_levenshtein.cu``, ``csrc/regex_dfa.cu``,
-``csrc/dense_resolve.cu``). ``explain`` raises ``NotImplementedError``.
+``csrc/dense_resolve.cu``). ``explain``, on a request or in a leaf's
+options, is answered on the dense executor, and :func:`explain_plan`
+renders a request's plan. ``server.py`` serves an index over HTTP and
+``cli.py`` builds and serves one
+(``python -m veloci_tpu_torch.cli serve <db> --device cuda``).
 
     index = load_index("path/to/index")  # on the card; load_index(path, "cpu") on the CPU
     results = search_batch([Request.from_dict(d) for d in dicts], index)
@@ -37,9 +41,11 @@ resolve are hand-written CUDA kernels (``csrc/banded_levenshtein.cu``,
     results = search_batch([query], index)
     index.warmup()  # once, after load
     suggestions = suggest(index, suggest_query("hau", index, fields=["title"]))
+    plan = explain_plan(Request.from_dict(d), index)
 
-An index is built with ``Persistence.from_built(create_indices_from_str(ndjson,
-config))`` and written with ``Persistence.save(directory)``.
+An index is built with ``Persistence.create_from_str(ndjson, config)`` (or
+``Persistence.from_built(create_indices_from_str(ndjson, config))``) and
+written with ``Persistence.save(directory)``.
 """
 
 from .create import add_token_values_to_tokens, create_indices_from_str
@@ -47,7 +53,7 @@ from .persistence import Persistence, TorchIndex, load_index
 from .query.generator import SearchQueryGeneratorParameters, search_query, suggest_query
 from .query.request import Request
 from .search.batch import search_batch
-from .search.executor import search, search_to_result_with_doc, suggest, suggest_batch
+from .search.executor import explain_plan, search, search_to_result_with_doc, suggest, suggest_batch
 from .search.field_search import highlight_field
 from .search.result import DocWithHit, Hit, SearchResult, SearchResultWithDoc
 
@@ -62,6 +68,7 @@ __all__ = [
     "TorchIndex",
     "add_token_values_to_tokens",
     "create_indices_from_str",
+    "explain_plan",
     "highlight_field",
     "load_index",
     "search",

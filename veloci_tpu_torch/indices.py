@@ -71,6 +71,9 @@ class Csr:
         counts = self.offsets[keys + 1].astype(np.int64) - starts
         return self.values[_run_positions(starts, counts)]
 
+    def memory_bytes(self) -> int:
+        return self.offsets.nbytes + self.values.nbytes
+
 
 def _run_positions(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
     """The positions of runs ``[start, start + count)``, concatenated."""
@@ -113,6 +116,9 @@ class Direct:
         vals = self.values[keys[(keys >= 0) & (keys < len(self.values))]]
         return vals[vals != EMPTY]
 
+    def memory_bytes(self) -> int:
+        return self.values.nbytes
+
 
 @dataclass
 class AnchorScoreCsr:
@@ -125,6 +131,9 @@ class AnchorScoreCsr:
     @property
     def num_keys(self) -> int:
         return len(self.offsets) - 1
+
+    def memory_bytes(self) -> int:
+        return self.offsets.nbytes + self.anchors.nbytes + self.scores.nbytes
 
 
 @dataclass
@@ -147,6 +156,9 @@ class PhraseCsr:
         starts = self.offsets[hit_pos].astype(np.int64)
         counts = self.offsets[hit_pos + 1].astype(np.int64) - starts
         return self.values[_run_positions(starts, counts)]
+
+    def memory_bytes(self) -> int:
+        return self.keys.nbytes + self.offsets.nbytes + self.values.nbytes
 
 
 class TermDictionary:
@@ -323,6 +335,9 @@ class TermDictionary:
         raw = bytes(arrays["term_bytes"].tobytes())
         terms = raw.decode("utf-8").split("\x00") if raw else []
         return cls(terms)
+
+    def memory_bytes(self) -> int:
+        return sum(len(t.encode("utf-8")) + 1 for t in self.terms)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "build_all", "load"]
@@ -28,6 +29,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict = {}  # source name -> loaded ctypes.CDLL (one per process)
+# held by load() from its check to its store, so that threads reaching a
+# kernel first build and load its library once
+_LOAD_LOCK = threading.Lock()
 # every source's C entry points return a cudaError_t as int; each source
 # also exports veloci_cuda_error_string(int) -> const char*
 
@@ -55,7 +59,7 @@ def build_all(sources=None) -> dict:
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
         procs[source] = (out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -76,15 +80,21 @@ def build_all(sources=None) -> dict:
 def load(source: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built first if needed. On
     the first load, each ``{symbol: argtypes}`` of ``signatures`` is
-    declared to return an int (a ``cudaError_t``)."""
+    declared to return an int (a ``cudaError_t``). Safe under threads: the
+    first caller builds and loads, the others wait for it and get the same
+    library."""
     lib = _LIBS.get(source)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all([source])[source]))
-        for symbol, argtypes in signatures.items():
-            fn = getattr(lib, symbol)
-            fn.restype = ctypes.c_int
-            fn.argtypes = argtypes
-        lib.veloci_cuda_error_string.restype = ctypes.c_char_p
-        lib.veloci_cuda_error_string.argtypes = [ctypes.c_int]
-        _LIBS[source] = lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all([source])[source]))
+            for symbol, argtypes in signatures.items():
+                fn = getattr(lib, symbol)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
+            lib.veloci_cuda_error_string.restype = ctypes.c_char_p
+            lib.veloci_cuda_error_string.argtypes = [ctypes.c_int]
+            _LIBS[source] = lib
     return lib

@@ -29,10 +29,12 @@ def _precompute_boost(bv, pres, spec):
     adder 0), ``folded = (m, a)``, either may be None."""
     fun, param, skip, expr_add = spec
     b = bv + float(np.float32(param or 0.0))
-    if fun == "Log10":
-        fac, mode = torch.log10(b), "mul"
-    elif fun == "Log2":
-        fac, mode = torch.log2(b), "mul"
+    if fun in ("Log10", "Log2"):
+        # numpy's f32 logarithm, as the reference's host boost takes it
+        # (torch's rounds otherwise on some values)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            log = np.log10 if fun == "Log10" else np.log2
+            fac, mode = torch.from_numpy(log(b.cpu().numpy(), dtype=np.float32)).to(b.device), "mul"
     elif fun == "Multiply":
         fac, mode = b, "mul"
     elif fun == "Add":

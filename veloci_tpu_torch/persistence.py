@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import urllib.parse
 from collections import Counter
 from pathlib import Path
@@ -28,7 +29,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .create import TEXTINDEX, TO_ANCHOR_ID_SCORE, BuiltIndex
+from .create import TEXTINDEX, TO_ANCHOR_ID_SCORE, BuiltIndex, create_indices_from_str
 from .doc_store import DocLoader
 from .error import FstNotFoundError, VelociError
 from .indices import AnchorScoreCsr, Csr, Direct, PhraseCsr, TermDictionary
@@ -70,6 +71,32 @@ class Persistence:
         self.boost_stores: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
         self.doc_store_bytes: Optional[bytes] = None
         self.path: Optional[str] = None
+
+    @classmethod
+    def create_from_str(cls, data_str: str, indices: str = "{}", *, line_delimited: bool = True) -> "Persistence":
+        """Build an index from ndjson (or, with ``line_delimited=False``,
+        any JSON) and a TOML/JSON fields config (``create_from_str``,
+        ``persistence.py:441``)."""
+        return cls.from_built(create_indices_from_str(data_str, indices, line_delimited=line_delimited))
+
+    @classmethod
+    def create_im(cls, data_str: str, indices: str = "{}") -> "Persistence":
+        """In-memory build (reference Persistence::create_im,
+        persistence.rs:368-380)."""
+        return cls.create_from_str(data_str, indices)
+
+    @classmethod
+    def create_mmap(cls, directory: str, data_str: str, indices: str = "{}") -> "Persistence":
+        """Build, save to ``directory`` and read back through mmap
+        (reference Persistence::create_mmap + load, persistence.rs:382-410)."""
+        cls.create_from_str(data_str, indices).save(directory)
+        return cls.load(directory)
+
+    @classmethod
+    def create_from_file(cls, data_path: str, indices: str = "{}") -> "Persistence":
+        """Build from an ndjson file (reference
+        create::create_indices_from_file, create.rs:935-941)."""
+        return cls.create_from_str(Path(data_path).read_text(), indices)
 
     @classmethod
     def from_built(cls, built: BuiltIndex) -> "Persistence":
@@ -192,6 +219,17 @@ class Persistence:
 
     def get_all_fields(self) -> List[str]:
         return list(self.columns.keys())
+
+    def heap_size_report(self) -> str:
+        """The index's stores and dictionaries with their sizes in bytes
+        (reference persistence.rs:412-447)."""
+        lines = [f"{'index':70} {'bytes':>12}"]
+        everything = [*self.key_value_stores.items(), *self.anchor_scores.items(), *self.phrase_indices.items()]
+        for path, store in sorted(everything):
+            lines.append(f"{path:70} {store.memory_bytes():>12}")
+        for field, dictionary in sorted(self.dictionaries.items()):
+            lines.append(f"{field + '.terms':70} {dictionary.memory_bytes():>12}")
+        return "\n".join(lines)
 
     def has_token_to_anchor(self, path: str) -> bool:
         return path in self.anchor_scores
@@ -358,7 +396,13 @@ class TorchIndex:
     filters, boosts, facets and phrase boosts read. ``cache`` holds what
     the batched route derives from them once (device boost columns, filter
     masks, facet relations); :meth:`warmup` fills it before the first
-    request."""
+    request.
+
+    A server's threads share one index. Its counters are added to under a
+    lock (:meth:`count_path`, :meth:`count_rows`); its lazy fills
+    (``cache``, ``term_boost_cache``, the document loader) are single dict
+    reads and writes of values that do not change once made, so two
+    threads that race at worst make one twice."""
 
     def __init__(
         self, *, num_docs, all_fields, dictionaries, fields, long_terms, host_offsets, offsets,
@@ -390,6 +434,18 @@ class TorchIndex:
         self.last_warmup_breakdown: dict = {}  # seconds per step of the last warmup()
         self.path_counts: Counter = Counter()  # requests answered per route
         self.gathered_rows: Counter = Counter()  # posting rows read per route
+        self.bytes_indexed = 0  # the source data's size (Persistence.bytes_indexed)
+        self._count_lock = threading.Lock()  # server threads share the counters
+
+    def count_path(self, route: str, n: int = 1) -> None:
+        """Add ``n`` to ``path_counts[route]``."""
+        with self._count_lock:
+            self.path_counts[route] += n
+
+    def count_rows(self, route: str, n: int) -> None:
+        """Add ``n`` to ``gathered_rows[route]``."""
+        with self._count_lock:
+            self.gathered_rows[route] += n
 
     @classmethod
     def from_reference_arrays(
@@ -421,13 +477,15 @@ class TorchIndex:
         comb = pers.combined_host_csr()
         if comb is None:
             comb = np.zeros(2, np.int64), np.zeros(0, np.int32), np.zeros(0, np.uint16), {}
-        return cls._upload(
+        index = cls._upload(
             pers.num_docs, pers.get_all_fields(), dict(pers.dictionaries),
             {f: d.char_matrix_compact() for f, d in pers.dictionaries.items()}, *comb, device,
             columns=pers.columns, key_value_stores=pers.key_value_stores,
             boost_stores=pers.boost_stores, phrase_indices=pers.phrase_indices,
             doc_store_bytes=pers.doc_store_bytes,
         )
+        index.bytes_indexed = pers.bytes_indexed
+        return index
 
     @classmethod
     def _upload(
@@ -505,6 +563,13 @@ class TorchIndex:
     def is_anchor_identity_column(self, field: str) -> bool:
         col = self.columns.get(_strip_textindex(field))
         return bool(col and col.get("is_anchor_identity_column"))
+
+    def get_valueid_to_parent(self, path: str):
+        """A key-value store by its path (``GET /<db>/inspect``)."""
+        store = self.key_value_stores.get(path)
+        if store is None:
+            raise VelociError(f"index not found: {path!r}")
+        return store
 
     def get_boost(self, path: str) -> Tuple[np.ndarray, np.ndarray]:
         store = self.boost_stores.get(path)

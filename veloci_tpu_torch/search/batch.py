@@ -36,10 +36,10 @@ highlighted texts (``_attach_why_found``, ``:828-868``). The shapes the
 tree routes do not take -- the reference's own causes for its executor
 (``_generic_eligible``, ``:484-647``; ``:1062``) -- go to the per-request
 dense executor (:func:`.executor.search`), one request at a time, as
-there. The shapes outside the port raise ``NotImplementedError``
-naming the ROADMAP item that brings them. One table decides
-(:data:`_ADMISSION`); no request falls through to another engine on an
-error.
+there; so does every request that asks for ``explain``, as the reference's
+batched routes decline it. One table decides (:data:`_ADMISSION`); no
+request falls through to another engine on an error. Each request's route
+is counted on ``index.path_counts`` and in :mod:`.stats`.
 """
 
 from __future__ import annotations
@@ -68,6 +68,7 @@ from .field_search import (
     search_field,
 )
 from .result import Hit, SearchResult
+from .stats import count_path
 from .why_found import get_why_found, merge_field_hits
 
 __all__ = ["search_batch"]
@@ -77,15 +78,6 @@ SEARCH, OR, AND = SearchRequest.SEARCH, SearchRequest.OR, SearchRequest.AND
 # gathered posting rows per sort: bounds the device memory of one sort
 # (about 64 bytes a row across the key, score, order and run arrays)
 _ROW_BUDGET = 1 << 23
-
-_A13B = "A13b (explain, explain_plan)"
-
-
-def _unsupported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is outside the port's current slice; see ROADMAP.md {item}"
-    )
-
 
 def _text_path(path: str) -> str:
     return path if path.endswith(TEXTINDEX) else path + TEXTINDEX
@@ -139,40 +131,46 @@ def _scan(node, index) -> _Tree:
     return _Tree(explain, regex, snippet, fits)
 
 
-# Admission: (route, predicate(request, index, _Tree), reason). The first
-# row whose predicate holds decides: a route of None raises
-# NotImplementedError with the reason, naming the ROADMAP item that brings
-# the shape; "executor" sends the request to the per-request dense
-# executor; "generic" and "plain" admit it to the tree routes, unless its
-# tree is beyond OR(AND(OR)) once flattened (_plan), which goes to the
-# executor too. why_found has no row: it rides any route, and the route's
-# results get its metadata (_attach_why_found). The executor rows are where the reference's
-# _generic_eligible sends a request to its executor; its caps that exist
-# only for the TPU compile and memory model (_MAX_FILTER_ANCHORS on phrase
-# anchors, the t/q/p pad buckets, _MAX_LEAF_TERMS_FUZZY with its "fz"
-# route) have no row. Admission runs for every request of a batch, so the
-# tree is read once (_scan) and each row reads its flags.
+# Admission: (route, key, predicate(request, index, _Tree), reason). The
+# first row whose predicate holds decides: "executor" sends the request to
+# the per-request dense executor, which counts the row's key as its
+# fallback reason (search/stats.py); "generic" and "plain" admit it to the
+# tree routes, unless its tree is beyond OR(AND(OR)) once flattened
+# (_plan), which goes to the executor too ("tree_shape"). why_found has no
+# row: it rides any route, and the route's results get its metadata
+# (_attach_why_found). The executor rows are where the reference sends a
+# request to its executor (its fast paths and search_batch decline
+# explain; _generic_eligible the rest); its caps that exist only for the
+# TPU compile and memory model (_MAX_FILTER_ANCHORS on phrase anchors, the
+# t/q/p pad buckets, _MAX_LEAF_TERMS_FUZZY with its "fz" route) have no
+# row. Admission runs for every request of a batch, so the tree is read
+# once (_scan) and each row reads its flags.
 _ADMISSION = (
-    (None, lambda r, ix, t: r.explain or t.explain, ("request or leaf 'explain'", _A13B)),
-    ("executor", lambda r, ix, t: r.boost_term, "a 'boost_term' factor"),
-    ("executor", lambda r, ix, t: r.text_locality, "a 'text_locality' factor"),
-    ("executor", lambda r, ix, t: r.suggest, "a request that carries 'suggest' (its search_req is answered)"),
-    ("executor", lambda r, ix, t: t.regex or any(p.is_regex for p in _extra_parts(r)),
+    ("executor", "explain", lambda r, ix, t: r.explain or t.explain,
+     "request or leaf 'explain': the executor keeps the planes its entries read"),
+    ("executor", "boost_term", lambda r, ix, t: r.boost_term, "a 'boost_term' factor"),
+    ("executor", "text_locality", lambda r, ix, t: r.text_locality, "a 'text_locality' factor"),
+    ("executor", "suggest", lambda r, ix, t: r.suggest,
+     "a request that carries 'suggest' (its search_req is answered)"),
+    ("executor", "regex_leaf", lambda r, ix, t: t.regex or any(p.is_regex for p in _extra_parts(r)),
      "a regex leaf, in the tree, a filter or a phrase boost"),
-    ("executor", lambda r, ix, t: t.snippet, "a leaf that asks for snippets"),
-    ("executor", lambda r, ix, t: any("[]" in b.path for b in r.boost or ()),
+    ("executor", "snippet_leaf", lambda r, ix, t: t.snippet, "a leaf that asks for snippets"),
+    ("executor", "boost_1n", lambda r, ix, t: any("[]" in b.path for b in r.boost or ()),
      "a boost over a 1:n path ('[]')"),
-    ("executor", lambda r, ix, t: any(not ix.has_index(_boost_path(b)) for b in r.boost or ()),
+    ("executor", "boost_without_column",
+     lambda r, ix, t: any(not ix.has_index(_boost_path(b)) for b in r.boost or ()),
      "a boost path without a boost column"),
-    ("executor", lambda r, ix, t: any(facet_relation(ix, f.field) is None for f in r.facets or ()),
+    ("executor", "facet_relation",
+     lambda r, ix, t: any(facet_relation(ix, f.field) is None for f in r.facets or ()),
      "a facet field without a fast relation, or past the facet gates"),
-    ("executor", lambda r, ix, t: any(pb.search1.path != pb.search2.path for pb in r.phrase_boosts or ()),
+    ("executor", "phrase_two_fields",
+     lambda r, ix, t: any(pb.search1.path != pb.search2.path for pb in r.phrase_boosts or ()),
      "a phrase boost over two fields (the executor raises InvalidRequestError)"),
-    ("executor", lambda r, ix, t: not t.fits,
+    ("executor", "leaf_shape", lambda r, ix, t: not t.fits,
      "leaves with several terms, leaf or node options, or a field without postings"),
-    ("generic", lambda r, ix, t: _has_extras(r),
+    ("generic", "generic", lambda r, ix, t: _has_extras(r),
      "filter, boost columns, facets or phrase boosts: the tree routes with their extras"),
-    ("plain", lambda r, ix, t: True, "a plain tree: the singles and tree routes"),
+    ("plain", "plain", lambda r, ix, t: True, "a plain tree: the singles and tree routes"),
 )
 
 
@@ -277,7 +275,7 @@ class _Query(NamedTuple):
 
 
 def _resolve(index, qi, req, plan, fuzzy, memo) -> _Query:
-    kind, shape, _generic = plan
+    kind, shape = plan.kind, plan.shape
     leaves = _leaf_slots(shape) if kind == "deep" else _group_slots(shape)
     g, sc, lv, ng = [np.empty(0, np.int64)], [np.empty(0, np.float32)], [], []
     for part, levels, n_groups in leaves:
@@ -469,7 +467,8 @@ def _boost_factors(index, bkey) -> tuple:
     boost spec (``_boost_device_arrays``, ``:1454``). They are computed on
     the host and uploaded: a logarithm rounds differently on the card and
     on the CPU, and computed once the factors are the same on both, so the
-    card's answers equal the CPU path's bit for bit."""
+    card's answers equal the CPU path's bit for bit; the logs are numpy's,
+    as the reference's host boost (and so its explain) takes them."""
     memo = index.cache.setdefault("boost_factors", {})
     pre = memo.get(bkey)
     if pre is None:
@@ -519,7 +518,7 @@ def _answer(index, route, queries, requests, results, start, extras=None) -> Non
     t_start = np.cumsum([0] + [len(q.gtids) for q in queries])
     rows = np.concatenate([[0], np.cumsum(counts)])[t_start]
     rows = rows[1:] - rows[:-1]  # gathered rows per query
-    index.gathered_rows[route] += int(rows.sum())
+    index.count_rows(route, int(rows.sum()))
     rows = rows + np.array([len(q.panchors) for q in queries])
     phrase = any(len(q.panchors) for q in queries)
     max_queries = len(queries)
@@ -601,28 +600,44 @@ def _stage(dev, frow, panchors):
     return flat[:q], flat[q : q + p], flat[q + p :]
 
 
-def _plan(request, index):
+class _Plan(NamedTuple):
+    """A request's admission: its tree route ("flat", "deep") or
+    "executor", the shape the route reads, whether its extras apply, and
+    the admission row's key (the executor's fallback reason)."""
+
+    kind: str
+    shape: object
+    generic: bool
+    reason: str
+
+
+def _plan(request, index) -> _Plan:
     """Admit a request (:data:`_ADMISSION`): ("flat", groups, generic),
-    ("deep", subtrees, generic) or ("executor", None, False), or raise for
-    shapes outside the port."""
+    ("deep", subtrees, generic) or ("executor", None, False), with the
+    deciding row's key."""
     if request.search_req is None:
         raise InvalidRequestError("search_req is required in search")
     tree = _scan(request.search_req, index)
-    for route, predicate, reason in _ADMISSION:
-        if predicate(request, index, tree):
-            if route is None:
-                raise _unsupported(*reason)
-            break
-    if route != "executor":
-        node = _normalize_node(request.search_req)
-        generic = route == "generic"
-        groups = _node_groups(node)
-        if groups is not None:
-            return "flat", groups, generic
-        supers = _node_deep(node)
-        if supers is not None:
-            return "deep", supers, generic
-    return "executor", None, False
+    route, key = next((route, key) for route, key, predicate, _reason in _ADMISSION
+                      if predicate(request, index, tree))
+    if route == "executor":
+        return _Plan("executor", None, False, key)
+    node = _normalize_node(request.search_req)
+    generic = route == "generic"
+    groups = _node_groups(node)
+    if groups is not None:
+        return _Plan("flat", groups, generic, key)
+    supers = _node_deep(node)
+    if supers is not None:
+        return _Plan("deep", supers, generic, key)
+    return _Plan("executor", None, False, "tree_shape")
+
+
+def admission_reason(key: str) -> str:
+    """What sent a request down the route of :class:`_Plan` ``reason``
+    ``key``: its :data:`_ADMISSION` row's text, or the tree shape's."""
+    return next((why for _route, k, _p, why in _ADMISSION if k == key),
+                "a tree beyond OR(AND(OR)) once flattened")
 
 
 def _fuzzy_specs(requests):
@@ -641,23 +656,23 @@ def search_batch(requests: List, index) -> List[SearchResult]:
     ``num_hits``, facet lists and f32 scores (see :mod:`..ops.tree_step` for
     the sum order of unions of three or more slots). Requests the tree
     routes do not take go to the per-request executor, one at a time."""
-    from .executor import search
+    from .executor import execute
 
     start = time.time_ns()
     plans = [_plan(req, index) for req in requests]
     results: List = [None] * len(requests)
     for qi, (req, plan) in enumerate(zip(requests, plans)):
-        if plan[0] == "executor":
-            results[qi] = search(req, index, dense_only=True)
+        if plan.kind == "executor":
+            results[qi] = execute(req, index, plan.reason)
     fuzzy = prefetch_fuzzy_matches(
-        index, set(_fuzzy_specs([r for r, p in zip(requests, plans) if p[0] != "executor"]))
+        index, set(_fuzzy_specs([r for r, p in zip(requests, plans) if p.kind != "executor"]))
     )
 
     plain = {"single": [], "single_slot": [], "tree": [], "deep": []}
     generic: Dict[tuple, list] = {}  # (route, boost keys, facet fields) -> queries
     memo: dict = {}  # leaf key -> (global term ids, scores), for this batch
     for qi, (req, plan) in enumerate(zip(requests, plans)):
-        kind, _shape, with_extras = plan
+        kind, with_extras = plan.kind, plan.generic
         if kind == "executor":
             continue
         q = _resolve(index, qi, req, plan, fuzzy, memo)
@@ -680,10 +695,12 @@ def search_batch(requests: List, index) -> List[SearchResult]:
         gkey = (route, tuple(_boost_key(b) for b in req.boost or ()),
                 tuple(dict.fromkeys(f.field for f in req.facets or ())))
         generic.setdefault(gkey, []).append(q)
-    index.path_counts["batched_single_term"] += len(plain["single"])
-    index.path_counts["batched_tree"] += len(plain["single_slot"]) + len(plain["tree"])
-    index.path_counts["batched_tree_deep"] += len(plain["deep"])
-    index.path_counts["batched_generic"] += sum(len(v) for v in generic.values())
+    for route, n in (("batched_single_term", len(plain["single"])),
+                     ("batched_tree", len(plain["single_slot"]) + len(plain["tree"])),
+                     ("batched_tree_deep", len(plain["deep"])),
+                     ("batched_generic", sum(len(v) for v in generic.values()))):
+        index.count_path(route, n)
+        count_path(route, n)
 
     for route, queries in plain.items():
         _answer(index, route, queries, requests, results, start)
@@ -691,7 +708,7 @@ def search_batch(requests: List, index) -> List[SearchResult]:
         extras = _group_extras(index, boost_keys, facet_fields, queries, requests, fuzzy)
         _answer(index, route, queries, requests, results, start, extras)
     for req, plan, res in zip(requests, plans, results):
-        if req.why_found and plan[0] != "executor":
+        if req.why_found and plan.kind != "executor":
             _attach_why_found(index, req, res, fuzzy)
     return results
 

@@ -239,12 +239,14 @@ class AnchorBoost(NamedTuple):
     expr_add: Optional[np.ndarray]  # [U] f32 sum of the expression's values
 
 
-def anchor_boost_accs(n: int, anchors, boost_vals, boost_part) -> AnchorBoost:
+def anchor_boost_accs(n: int, anchors, boost_vals, boost_part, host_sums: bool = False) -> AnchorBoost:
     """Per distinct anchor below ``n``, the 1:n boost's accumulations in list
     order (``anchor_boost_accs``, ``:382``, and the scatters of
     ``apply_anchor_boost_values_device``, ``:208-255``): products of the
     factors, sums of the added values, the last replacement, and sums of the
-    expression's values, each in f32."""
+    expression's values, each in f32. With ``host_sums`` and an ``Add``
+    boost, the expression's values are added on to the sums of the added
+    values (the reference's one host accumulator) and ``expr_add`` is None."""
     anchors = np.asarray(anchors, dtype=np.int64)
     keep = anchors < n
     anchors = anchors[keep]
@@ -273,22 +275,31 @@ def anchor_boost_accs(n: int, anchors, boost_vals, boost_part) -> AnchorBoost:
     if boost_part.expression:
         expr = ScoreExpression(boost_part.expression)
         adds = expr_vec(expr, torch.from_numpy(boost_vals)).numpy()
-        expr_add = np.zeros(len(u), dtype=_F32)
-        np.add.at(expr_add, inv, adds)
+        if host_sums and add is not None:
+            np.add.at(add, inv, adds)
+        else:
+            expr_add = np.zeros(len(u), dtype=_F32)
+            np.add.at(expr_add, inv, adds)
     return AnchorBoost(u, factor, add, replace, expr_add)
 
 
-def apply_anchor_boost_values_device(dense: torch.Tensor, anchors, boost_vals, boost_part) -> torch.Tensor:
+def apply_anchor_boost_values_device(dense: torch.Tensor, anchors, boost_vals, boost_part,
+                                     host_sums: bool = False) -> torch.Tensor:
     """A 1:n boost's ``(anchor, value)`` lists over the dense plane
     (``apply_anchor_boost_values_device``, ``:208``): accumulated per anchor
     on the host (:func:`anchor_boost_accs`), uploaded once and applied at
     their anchors with a gather; at hits only, the factor, then the sum, the
     replacement, the expression's sum, in that order, each rounded apart.
-    Then every hit floors at 1e-30; empty lists leave the plane as it is."""
+    Then every hit floors at 1e-30; empty lists leave the plane as it is.
+
+    ``host_sums``: the reference's host form (``apply_anchor_boost_values``,
+    ``:421``, which its executor takes with explain) instead, whose one
+    accumulator adds the expression's values after the ``Add`` values, in
+    list order, before the plane does."""
     if not len(anchors):
         return dense
     dev = dense.device
-    acc = anchor_boost_accs(dense.shape[0], anchors, boost_vals, boost_part)
+    acc = anchor_boost_accs(dense.shape[0], anchors, boost_vals, boost_part, host_sums)
     out = torch.where(dense > 0, torch.clamp(dense, min=_HIT_EPS), dense)
     if not len(acc.anchors):
         return out
@@ -364,7 +375,7 @@ def term_boost_anchors(index, boost_terms, fuzzy) -> list:
             found[key] = cache.get(key)
             if found[key] is None:
                 missing[key] = part
-        index.path_counts["term_boost_cache_hit" if repeat or key not in missing else "term_boost_cache_miss"] += 1
+        index.count_path("term_boost_cache_hit" if repeat or key not in missing else "term_boost_cache_miss")
     specs = {s for s in map(fuzzy_spec, missing.values()) if s is not None and s not in fuzzy}
     if specs:
         fuzzy = {**fuzzy, **prefetch_fuzzy_matches(index, specs)}

@@ -19,9 +19,17 @@ phrase factor, the ``boost_term`` factor (B10, :func:`.boost.term_boost_factor_d
 and the text-locality factor (``:836-868``), ``num_hits`` = the count of
 scores > 0, the facet counts over that hit set and the exact top-k; with
 ``why_found``, the leaves' matched terms and, with ``select``, the top
-hits' highlighted texts (:mod:`.why_found`). The reference computes these
-planes with numpy below ``SMALL_DOCS`` documents; the port has no host
-branch.
+hits' highlighted texts (:mod:`.why_found`); with ``explain``, on the
+request or in a leaf's options, each top hit's entries
+(:mod:`.explain`): the OR nodes keep their children's planes and each 1:n
+or column boost its old and new plane, on the device, and the entries read
+them at the hits only. The reference computes these planes with numpy
+below ``SMALL_DOCS`` documents, and always with explain; the port has no
+host branch, and its device planes give the host's bits (the boosts' logs
+and sums are taken on the host).
+
+:func:`explain_plan` renders the plan as graphviz text, the reference's,
+with a ``path`` node that names the port's route and kernels.
 
 The executor keeps no memo of field searches across requests: each request
 runs its own (its fuzzy leaves, and its ``boost_term`` parts not cached yet,
@@ -65,20 +73,26 @@ from .boost import (
     term_boost_factor_device,
     text_locality_boost,
 )
+from .explain import BoostRecord, ExplainNode, collect_explain
 from .facet import get_facet
 from .field_search import (
     clamped_distance,
     fuzzy_spec,
     leaf_field,
     prefetch_fuzzy_matches,
+    regex_dfa,
     search_field,
+    sweep_kernel,
+    sweep_launches,
 )
 from .highlight import highlight_on_original_document
 from .read_document import read_data
 from .result import DocWithHit, Hit, SearchResult, SearchResultWithDoc
+from .stats import count_fallback
 from .why_found import get_why_found, merge_field_hits
 
-__all__ = ["search", "search_to_result_with_doc", "suggest", "suggest_batch", "to_documents"]
+__all__ = ["execute", "explain_plan", "search", "search_to_result_with_doc", "suggest", "suggest_batch",
+           "to_documents"]
 
 SEARCH, OR, AND = SearchRequest.SEARCH, SearchRequest.OR, SearchRequest.AND
 _F32 = np.float32
@@ -86,7 +100,8 @@ _DISTINCT_MIN = float(np.float32(1e-5))  # a union counts a term whose maximum r
 
 
 class _Ctx:
-    """One request's index, fuzzy matches and field-search results."""
+    """One request's index, fuzzy matches and field-search results, and,
+    when it asks for explain, the boost applications its entries read."""
 
     def __init__(self, index, fuzzy, request):
         self.index = index
@@ -96,6 +111,8 @@ class _Ctx:
         self.store_hits = bool(request.why_found or request.text_locality)
         self.store_texts = bool(request.why_found)
         self._fields: dict = {}
+        self.explain = _wants_explain(request)
+        self.boost_log: List[BoostRecord] = []
 
     def field_search(self, part):
         """The leaf's field search (its first term only, as the reference
@@ -110,6 +127,13 @@ class _Ctx:
 
     def zeros(self) -> torch.Tensor:
         return torch.zeros(self.num_docs, dtype=torch.float32, device=self.index.device)
+
+
+def _wants_explain(request) -> bool:
+    """``explain`` on the request or in any leaf's options turns it on for
+    the whole request (``:740-743``)."""
+    return bool(request.explain) or any(
+        p.options and p.options.get("explain") for p in request.search_req.walk_parts())
 
 
 def _option_boosts(options) -> list:
@@ -135,8 +159,8 @@ def _union(ctx, children):
     times distinct squared (distinct: maxima >= 1e-5)."""
     total = ctx.zeros()
     distinct = torch.zeros(ctx.num_docs, dtype=torch.int32, device=ctx.index.device)
-    for term in sorted({t for _d, t, _p in children}):
-        vecs = [d for d, t, _p in children if t == term]
+    for term in sorted({c[1] for c in children}):
+        vecs = [c[0] for c in children if c[1] == term]
         mx = vecs[0]
         for v in vecs[1:]:
             mx = torch.maximum(mx, v)
@@ -150,22 +174,23 @@ def _intersect(ctx, children):
     """intersect_hits_score (set_op.rs:368-448): where every child hits, the
     children summed in child order, the one with the fewest hits (the first
     such) added last."""
-    hit = [d > 0 for d, _t, _p in children]
+    hit = [c[0] > 0 for c in children]
     mask = hit[0]
     for h in hit[1:]:
         mask = mask & h
     shortest = int(np.argmin(torch.stack([h.sum() for h in hit]).cpu().numpy()))
     total = ctx.zeros()
-    for i, (d, _t, _p) in enumerate(children):
+    for i, c in enumerate(children):
         if i != shortest:
-            total = total + d
+            total = total + c[0]
     total = total + children[shortest][0]
     return torch.where(mask, total, 0.0)
 
 
 def _eval_scores(ctx, node, boosts):
-    """The tree -> (plane, representative term, representative path): a
-    child's representative is its leftmost leaf's first term."""
+    """The tree -> (plane, representative term, representative path,
+    explain node or None): a child's representative is its leftmost leaf's
+    first term. With explain, a leaf's 1:n boost records its application."""
     if node.kind == SEARCH:
         part = node.part
         fsr = ctx.field_search(part)
@@ -174,22 +199,32 @@ def _eval_scores(ctx, node, boosts):
         b1n = _matching_1n_boost(part, list(boosts) + _option_boosts(part.options))
         if b1n is not None:
             anchors, values = boost_to_anchor_values(ctx.index, part.path, b1n, ids)
-            dense = apply_anchor_boost_values_device(dense, anchors, values, b1n)
-        return dense, part.terms[0], part.path
+            old = dense
+            dense = apply_anchor_boost_values_device(dense, anchors, values, b1n, host_sums=ctx.explain)
+            if ctx.explain:
+                ctx.boost_log.append(BoostRecord(old, dense, ("ratio", None) if b1n.boost_fun == "Log10" else None))
+        enode = ExplainNode("leaf", fsr=fsr) if ctx.explain else None
+        return dense, part.terms[0], part.path, enode
     # node-level option boosts join the subtree's (merge_vec, execution_plan.rs:268-275)
     sub_boosts = list(boosts) + _option_boosts(node.options)
     children = [_eval_scores(ctx, q, sub_boosts) for q in node.queries]
     if not children:
-        return ctx.zeros(), "", ""
+        return ctx.zeros(), "", "", None
     if len(children) == 1:
         return children[0]
+    enode = None
     if node.kind == OR:
         dense = _union(ctx, children)
+        if ctx.explain:
+            enode = ExplainNode("or", children=[c[3] for c in children], planes=[c[0] for c in children],
+                                terms=[c[1] for c in children])
     elif node.kind == AND:
         dense = _intersect(ctx, children)
+        if ctx.explain:
+            enode = ExplainNode("and", children=[c[3] for c in children])
     else:
         raise InvalidRequestError(f"unknown node kind {node.kind}")
-    return dense, children[0][1], children[0][2]
+    return dense, children[0][1], children[0][2], enode
 
 
 def _phrase_boost(ctx, phrase_boosts, dense):
@@ -208,9 +243,12 @@ def _phrase_store(index, pb):
     return index.phrase_indices.get(batch._text_path(pb.search1.path) + PHRASE_PAIR_TO_ANCHOR)
 
 
-def _execute(request, index, start) -> SearchResult:
-    """The dense executor (``search``, ``:758-920``)."""
-    index.path_counts["executor"] += 1
+def execute(request, index, reason: str) -> SearchResult:
+    """The dense executor (``search``, ``:758-920``): ``reason`` is why the
+    request came here, counted as its fallback in :mod:`.stats`."""
+    start = time.time_ns()
+    index.count_path("executor")
+    count_fallback(reason)
     boost_terms = list(request.boost_term or ())
     # the tree's, the filter's and the phrase pairs' fuzzy leaves in one
     # prefetch, with the boost_term parts' not cached yet, to share its launch
@@ -221,12 +259,17 @@ def _execute(request, index, start) -> SearchResult:
     fuzzy = prefetch_fuzzy_matches(index, specs)
     ctx = _Ctx(index, fuzzy, request)
     boosts = list(request.boost or ())
-    dense, _term, _path = _eval_scores(ctx, request.search_req, boosts)
+    dense, _term, _path, enode = _eval_scores(ctx, request.search_req, boosts)
     if request.filter is not None:
         dense = torch.where(batch._filter_mask_device(index, request.filter, fuzzy), dense, 0.0)
     for b in boosts:  # boost columns at anchors (execution_plan.rs:168-183)
         if "[]" not in b.path:
+            old = dense
             dense = apply_boost_dense_device(dense, batch._boost_factors(index, batch._boost_key(b)))
+            if ctx.explain:  # Log10 explains its factor, log10(value + param), too
+                log10 = (("column", (index.get_boost(batch._boost_path(b))[0], _F32(b.param or 0.0)))
+                         if b.boost_fun == "Log10" else None)
+                ctx.boost_log.append(BoostRecord(old, dense, log10))
     if request.phrase_boosts:
         dense = _phrase_boost(ctx, request.phrase_boosts, dense)
     term_id_hits, term_texts = merge_field_hits(map(ctx.field_search, request.search_req.walk_parts()))
@@ -247,6 +290,8 @@ def _execute(request, index, start) -> SearchResult:
     result.data = [Hit(int(i), float(s)) for i, s in zip(ids, scores)]
     if request.why_found and request.select is not None:
         result.why_found_info = get_why_found(index, [h.id for h in result.data], term_id_hits)
+    if ctx.explain:
+        result.explain = collect_explain(index, enode, [h.id for h in result.data], ctx.boost_log)
     result.execution_time_ns = time.time_ns() - start
     return result
 
@@ -256,13 +301,158 @@ def search(request, index, dense_only: bool = False) -> SearchResult:
 
     A request the batched route admits is answered as
     ``search_batch([request], index)[0]``; the rest, and every request when
-    ``dense_only`` is set, by the dense executor. ``explain``, on the
-    request or a leaf, raises ``NotImplementedError`` naming ROADMAP
-    A13b."""
-    start = time.time_ns()
-    if batch._plan(request, index)[0] != "executor" and not dense_only:
+    ``dense_only`` is set, by the dense executor (:func:`execute`), which
+    answers ``explain``, on the request or a leaf, too."""
+    plan = batch._plan(request, index)
+    if plan.kind != "executor" and not dense_only:
         return batch.search_batch([request], index)[0]
-    return _execute(request, index, start)
+    return execute(request, index, plan.reason if plan.kind == "executor" else "dense_only")
+
+
+def _plan_parts(request):
+    """The request's distinct field searches in the reference's collection
+    order, each with the flags its plan node shows (``_collect_parts``,
+    ``:108-126``): ``{part key: (part, the set of "scores", "ids",
+    "term_hits")}``."""
+    parts: dict = {}
+
+    def register(part, *flags):
+        _part, on = parts.setdefault(part.key(), (part, set()))
+        on.update(f for f, want in flags if want)
+
+    store_hits = bool(request.why_found or request.text_locality)
+    for part in request.search_req.walk_parts():
+        register(part, ("scores", True), ("term_hits", store_hits))
+    for pb in request.phrase_boosts or ():
+        register(pb.search1, ("ids", True), ("scores", True))
+        register(pb.search2, ("ids", True), ("scores", True))
+    if request.filter is not None:
+        for part in request.filter.walk_parts():
+            register(part, ("ids", True))
+    return parts
+
+
+_SWEEP_NAMES = {"select": "B2 fused select", "banded": "B1 banded sweep", "full": "B3 full-width sweep"}
+
+
+def _route_label(request, index) -> str:
+    """The port's route for the request (:func:`.batch._plan`, with the
+    admission row's key) and the kernels it launches, read from the same
+    decisions the search makes, without device work: each sweep launch of
+    the fuzzy prefetch (:func:`.field_search.sweep_launches`,
+    :func:`.field_search.sweep_kernel`), B8 for a regex leaf with a DFA
+    (:func:`.field_search.regex_dfa`; B3 for its distances), B7 for the
+    executor's leaves. On an index on the CPU the kernels' plain versions
+    run instead."""
+    plan = batch._plan(request, index)
+    parts = (*request.search_req.walk_parts(), *batch._extra_parts(request))
+    kernels = [f"{field}: {_SWEEP_NAMES[sweep_kernel(items)]}"
+               for (field, _full), items in sweep_launches(batch._fuzzy_specs([request])).items()]
+    regex = [p for p in parts if p.is_regex]
+    if any(regex_dfa(p)[1] is not None for p in regex):
+        kernels.append("B8 DFA walk and B3 distances (regex leaves)")
+    if any(regex_dfa(p)[1] is None for p in regex):
+        kernels.append("re scan on the host (regex leaves without a DFA)")
+    why = f"{plan.reason}: {batch.admission_reason(plan.reason)}"
+    if plan.kind == "executor":
+        route = f"dense executor ({why}); a [num_docs] plane a leaf"
+        kernels.append("B7 dense resolve")
+    elif plan.kind == "deep":
+        route = f"deep tree ({why}); the sorted-run deep evaluator"
+    else:
+        route = f"flat tree ({why}); singles when one term matches, else the sorted-run tree evaluator"
+    device = "" if index.device.type == "cuda" else f" (plain versions on {index.device.type})"
+    return f"{route}; kernels{device}: {', '.join(kernels) or 'none'}"
+
+
+def explain_plan(request, index) -> str:
+    """The plan as graphviz dot (``explain_plan``, ``:1132-1308``; reference
+    plan.rs:81-125): the deduplicated field searches with their flags and
+    reuse counts, the 1:n boost splits, the filter mask, the boost,
+    phrase, ``term_boost``, ``text_locality`` and facet nodes and the
+    result node, as the reference renders them; its ``path`` node names
+    the port's route and kernels (:func:`_route_label`). No device work."""
+    if request.search_req is None:
+        raise InvalidRequestError("search_req is required in search")
+    lines = ["digraph plan {"]
+    parts = _plan_parts(request)
+    refs: dict = {}
+    for node in (request.search_req, request.filter):
+        for part in node.walk_parts() if node is not None else ():
+            refs[part.key()] = refs.get(part.key(), 0) + 1
+    for pb in request.phrase_boosts or ():
+        for part in (pb.search1, pb.search2):
+            refs[part.key()] = refs.get(part.key(), 0) + 1
+    lines.append(f'  path [label="execution path: {_route_label(request, index)}", shape=note];')
+
+    fs_name: dict = {}
+    for i, (key, (part, on)) in enumerate(parts.items()):
+        flags = "+".join(f for f in ("scores", "ids", "term_hits") if f in on)
+        reuse = refs.get(key, 1)
+        reuse_txt = f", reused x{reuse}" if reuse > 1 else ""
+        fs_name[key] = f"fs{i}"
+        lines.append(f'  fs{i} [label="field_search {part.path} {part.terms} [{flags}{reuse_txt}]", shape=box];')
+
+    boosts = list(request.boost or ())
+
+    def node_name() -> str:
+        return f"n{len(lines)}"
+
+    def walk(node) -> str:
+        name = node_name()
+        if node.kind == SEARCH:
+            fs = fs_name[node.part.key()]
+            lines.append(f'  {name} [label="resolve_to_anchor"];')
+            lines.append(f"  {fs} -> {name};")
+            b1n = _matching_1n_boost(node.part, boosts)
+            if b1n is None:
+                return name
+            bname = node_name()  # the 1:n boost split (execution_plan.rs:439-443)
+            lines.append(f'  {bname} [label="boost_to_anchor {b1n.path}"];')
+            lines.append(f"  {fs} -> {bname};")
+            aname = node_name()
+            lines.append(f'  {aname} [label="apply_anchor_boost"];')
+            lines.append(f"  {name} -> {aname};")
+            lines.append(f"  {bname} -> {aname};")
+            return aname
+        lines.append(f'  {name} [label="{"union" if node.kind == OR else "intersect"}"];')
+        for q in node.queries:
+            lines.append(f"  {walk(q)} -> {name};")
+        return name
+
+    def step(label: str, *inputs: str) -> str:
+        name = node_name()
+        lines.append(f'  {name} [label="{label}"];')
+        lines.extend(f"  {i} -> {name};" for i in inputs)
+        return name
+
+    final = walk(request.search_req)
+    if request.filter is not None:
+        lines.append('  filter [label="filter mask (computed ONCE, broadcast)", shape=box];')
+        lines.extend(f"  {fs_name[p.key()]} -> filter;" for p in request.filter.walk_parts())
+        lines.append('  fstep [label="intersect scores with filter mask"];')
+        lines.append("  filter -> fstep;")
+        lines.append(f"  {final} -> fstep;")
+        final = "fstep"
+    for b in boosts:
+        if "[]" not in b.path:  # a 1:n boost is rendered as its split above
+            final = step(f"boost {b.path} {b.boost_fun or b.expression}", final)
+    for pb in request.phrase_boosts or ():
+        pair = step(f"phrase_pair_to_anchor {pb.search1.terms[0]} {pb.search2.terms[0]}",
+                    fs_name[pb.search1.key()], fs_name[pb.search2.key()])
+        final = step("boost_anchor_from_phrase", pair, final)
+    if request.boost_term:
+        final = step("term_boost (LRU-cached anchors)", final)
+    if request.text_locality:
+        final = step("text_locality_boost", final)
+    if request.facets:
+        fields = ",".join(f.field for f in request.facets)
+        lines.append(f'  facets [label="facet counts ({fields}): masked segment-sum"];')
+        lines.append(f"  {final} -> facets;")
+    lines.append('  result [label="exact 2-stage top_k + fetch"];')
+    lines.append(f"  {final} -> result;")
+    lines.append("}")
+    return "\n".join(lines)
 
 
 def to_documents(index, hits: List[Hit], select, result: SearchResult) -> List[DocWithHit]:
@@ -402,8 +592,8 @@ def suggest_batch(index, requests) -> list:
         out[i] = _suggest_fast(index, request)
         if out[i] is None:
             general.append(i)
-    index.path_counts["suggest_fast"] += len(requests) - len(general)
-    index.path_counts["suggest_general"] += len(general)
+    index.count_path("suggest_fast", len(requests) - len(general))
+    index.count_path("suggest_general", len(general))
     if general:
         specs = {fuzzy_spec(p) for i in general for p in requests[i].suggest} - {None}
         fuzzy = prefetch_fuzzy_matches(index, specs)

@@ -62,6 +62,9 @@ __all__ = [
     "resolve_token_hits_to_text_id",
     "leaf_field",
     "clamped_distance",
+    "regex_dfa",
+    "sweep_kernel",
+    "sweep_launches",
 ]
 
 _F32 = np.float32
@@ -180,6 +183,30 @@ def _band(items) -> int:
     return 2 if max(d for _t, d, _sw in items) <= 2 else 4
 
 
+def sweep_launches(specs) -> Dict[Tuple[str, bool], list]:
+    """The sweep launches that serve fuzzy ``specs``: per ``(field, full)``
+    the items ``(lower_term, distance, starts_with)`` of one launch, where
+    ``full`` marks the specs whose matches need the full distance or the
+    distance over term prefixes (``starts_with``, or a distance past the
+    band). Specs longer than 31 chars take none: :func:`match_term_ids`'
+    host loop matches them."""
+    launches: Dict[Tuple[str, bool], list] = {}
+    for field, lower_term, distance, starts_with in sorted(set(specs)):
+        if len(lower_term) <= MAX_QUERY_CHARS - 1:
+            full = starts_with or distance > MAX_BAND
+            launches.setdefault((field, full), []).append((lower_term, distance, starts_with))
+    return launches
+
+
+def sweep_kernel(items) -> str:
+    """The kernel :func:`_select` launches for one launch's ``items``:
+    "select" (the fused select, for a lone item the band holds), "banded"
+    (the batched banded sweep) or "full" (the full-width sweep)."""
+    if any(sw or d > MAX_BAND for _t, d, sw in items):
+        return "full"
+    return "select" if len(items) == 1 else "banded"
+
+
 def _select(sweep, items):
     """One launch over ``sweep`` for ``items`` [(lower_term, distance,
     starts_with)], matched on the prefix distance for ``starts_with`` and
@@ -187,13 +214,13 @@ def _select(sweep, items):
     A lone item the band holds takes the fused select, whose kernel writes
     only the matches; every other set one sweep and ``select_matches``."""
     dev = sweep.chars_t.device
-    full = any(sw or d > MAX_BAND for _t, d, sw in items)
-    if len(items) == 1 and not full:
+    kernel = sweep_kernel(items)
+    if kernel == "select":
         lower_term, distance, _sw = items[0]
         query, qlen = encode_query(lower_term)
         return [levenshtein_select_banded(
             sweep.chars_t, sweep.lengths, sweep.sweep_ids, query, qlen, _band(items), distance)]
-    dist, prefix_dist, ispref = _sweep(sweep, items, full)
+    dist, prefix_dist, ispref = _sweep(sweep, items, kernel == "full")
     distances = torch.tensor([d for _t, d, _sw in items], dtype=torch.int32, device=dev)
     crit = dist
     if any(sw for _t, _d, sw in items):
@@ -240,13 +267,8 @@ def prefetch_fuzzy_matches(index, specs) -> Dict[Tuple[str, str, int, bool], tup
     ``{spec: (term_ids, distances, is_prefix)}``, term ids ascending.
     Specs longer than 31 chars are left to the host loop of
     :func:`match_term_ids`, as in the reference."""
-    launches: Dict[Tuple[str, bool], list] = {}
-    for field, lower_term, distance, starts_with in sorted(set(specs)):
-        if len(lower_term) <= MAX_QUERY_CHARS - 1:
-            full = starts_with or distance > MAX_BAND
-            launches.setdefault((field, full), []).append((lower_term, distance, starts_with))
     out = {}
-    for (field, _full), items in launches.items():
+    for (field, _full), items in sweep_launches(specs).items():
         dictionary = index.get_dictionary(field)
         matches = _select(index.fields[field], items)
         extras = _long_matches(index.long_terms[field], items)
@@ -327,16 +349,14 @@ def _regex_candidates(index, field: str, dfa, shorthand: bool, prefix: bool) -> 
     return np.unique(np.concatenate(parts).astype(np.int64))
 
 
-def _match_regex(index, part) -> np.ndarray:
-    """A regex leaf's matched term ids, ascending (``_match_regex``,
-    ``:550-602``, with the answer of its host scan). The pattern is the
-    term when ``re`` compiles it, else the escaped term; its DFA is
-    compiled from that same pattern. A pattern outside ASCII, or one that
+def regex_dfa(part):
+    """A regex leaf's matcher and DFA -> (``re`` match function, the DFA or
+    None, whether the pattern uses ``\\d``, ``\\w`` or ``\\s``). The pattern is
+    the term when ``re`` compiles it, else the escaped term; the DFA is
+    compiled from that same pattern, case-folded (a superset), and is None
+    for a pattern outside ASCII or one that
     :func:`..ops.regex_dfa.compile_dfa` does not read as ``re`` does or
-    refuses, scans the dictionary with ``re`` on the host. Each outcome is
-    counted on ``index.path_counts`` ("regex_dfa", "regex_host_scan")."""
-    field = leaf_field(part)
-    terms = index.get_dictionary(field).terms
+    refuses."""
     term = part.terms[0]
     flags = re.IGNORECASE if (part.ignore_case if part.ignore_case is not None else True) else 0
     try:
@@ -344,15 +364,27 @@ def _match_regex(index, part) -> np.ndarray:
     except re.error:
         pattern = re.compile(re.escape(term), flags)
     fn = pattern.match if part.starts_with else pattern.fullmatch
-    dfa = None
+    dfa, shorthand = None, False
     if pattern.pattern.isascii():
         reads_like_re, shorthand = _dfa_escapes(pattern.pattern)
         if reads_like_re:
-            dfa = compile_dfa(pattern.pattern, ignore_case=True)  # folded: a superset
+            dfa = compile_dfa(pattern.pattern, ignore_case=True)
+    return fn, dfa, shorthand
+
+
+def _match_regex(index, part) -> np.ndarray:
+    """A regex leaf's matched term ids, ascending (``_match_regex``,
+    ``:550-602``, with the answer of its host scan): kernel B8 walks the
+    leaf's DFA (:func:`regex_dfa`), and a leaf without one scans the
+    dictionary with ``re`` on the host. Each outcome is
+    counted on ``index.path_counts`` ("regex_dfa", "regex_host_scan")."""
+    field = leaf_field(part)
+    terms = index.get_dictionary(field).terms
+    fn, dfa, shorthand = regex_dfa(part)
     if dfa is None:
-        index.path_counts["regex_host_scan"] += 1
+        index.count_path("regex_host_scan")
         return np.array([i for i, t in enumerate(terms) if fn(t)], dtype=np.int64)
-    index.path_counts["regex_dfa"] += 1
+    index.count_path("regex_dfa")
     cand = _regex_candidates(index, field, dfa, shorthand, bool(part.starts_with))
     return np.array([i for i in cand.tolist() if fn(terms[i])], dtype=np.int64)
 
