@@ -3,11 +3,17 @@
 
 Run from the repository root, on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--compare-full OLD_full_levenshtein.cu]
+    python3 chip_smoke.py [--compare-full OLD_full_levenshtein.cu] [--compare-regex TREE]
 
 ``--compare-full`` builds another version of the full-width kernel's source
 (the same C entry point) and times it against the tree's in turns (old,
 new, new, old) at every full-width shape below, outputs required equal.
+``--compare-regex`` takes another tree (a directory holding
+``veloci_tpu_torch/`` and ``native/``, such as a ``git archive`` of a
+commit with the same index format): after the main paths, child processes
+load the saved index with that tree's package and with this one's and
+answer the ``regex`` mix, in REGEX_AB_ROUNDS rounds of (other, this, this,
+other); each child's p50 / p99 and B8 launches, then each tree's median p50.
 
 Phases (any failure is an exception and a non-zero exit):
 
@@ -70,9 +76,11 @@ Phases (any failure is an exception and a non-zero exit):
              title, ent_seq, cat and pop. Each request's top 10 is read
              back with ``search_to_result_with_doc``, half with ``select``
              title and cat, half whole documents. It must launch the DFA
-             walk (B8) once a regex leaf for each matrix of its field (the
-             sweep rows, and the long terms where the field has them), and
-             B7; the host-scan count must be 0. p50 and p99 of a request
+             walk (B8's two-matrix entry ``regex_match_pair``) once a regex
+             leaf, over both matrices of its field (the sweep rows and the
+             long terms) where the field has any row, and B7; the
+             host-scan count must be 0. The DFA cache's hits and misses
+             (``cached_dfa``: a miss compiles a pattern) are printed. p50 and p99 of a request
              and of its document read, host clock. Every answer and its
              documents are checked against the CPU plain path.
              The sixth main path, ``features``, on the same index: 256
@@ -134,17 +142,23 @@ Phases (any failure is an exception and a non-zero exit):
              path's first pattern of each kind: on the title field's sweep
              rows (u16, transposed) and long rows (int32 codes, row-major),
              on ent_seq's sweep rows, on a synthetic 1,000,000-term
-             dictionary, and on an edge set (the empty term, terms of 32,
-             33 and 254 chars and longer, non-ASCII terms, the four code
+             dictionary, on an edge set (the empty term, terms of 32, 33
+             and 254 chars and longer, non-ASCII terms, the four code
              points re folds onto ASCII, patterns with \\w and with a dead
-             state) in both layouts. Per shape the kernel's median ms (CUDA
-             events), the plain walk's, and the bound: 4 bytes a row for
+             state) in both layouts, on rows that mix ASCII and non-ASCII
+             chars in every warp, and on long rows of unequal lengths in
+             every warp; and the two-matrix entry ``regex_match_pair``
+             against its plain version on each field's sweep and long rows
+             and on the edge sets. Per shape the kernel's median ms (CUDA
+             events; with the DFA's kernel argument built, and again with a
+             new copy of the DFA each call, which builds it, as a pattern
+             not yet cached does), the plain walk's, and the bound: 4 bytes a row for
              its length, 2 a char walked of a u16 row or 4 of an int32 row,
              1 a row written, over 3.35 TB/s, against ceil(log2 C) + 2
              integer operations a char step; chars walked counted on this
              run's data (a row stops at its length, the dead state, or its
-             first prefix accept). The kernel alone by profiler events in
-             phase 8. B7 is checked again at the regex path's largest leaf,
+             first prefix accept); the pair's bound the sum of its two
+             matrices'. The kernel alone by profiler events in phase 8. B7 is checked again at the regex path's largest leaf,
              which takes its unstaged path (more than 1,024 terms).
 7. select  -- the fused lone-request select (B2, ``levenshtein_select_banded``)
              against its plain twin on the card, equal, on every fuzzy spec
@@ -207,6 +221,7 @@ FEATURE_SELECT = ["title", "cat"]  # the select of half the why_found requests
 DENSE_SYNTH_DOCS = 6_000_000  # B7's synthetic plane: past the reference's 2^21 sort capacity
 DENSE_SYNTH_ROWS = 1 << 23
 DENSE_SYNTH_TERMS = 64
+REGEX_AB_ROUNDS = 3  # --compare-regex: rounds of (other tree, this tree, this tree, other tree)
 
 # Peak rates of one H100 SXM at its 700 W limit: HBM3 at 3.35 TB/s; INT32
 # instructions at 132 SMs x 64 INT32 lanes x 1.98 GHz (NVIDIA's data sheet
@@ -644,9 +659,11 @@ def edge_phase(sweep, encode_query, rng):
 
 
 def kernel_phase(sweep, encode_query, dictionaries, rng, report, baseline):
-    """Kernel vs plain on the card at every shape; exact equality."""
+    """Kernel vs plain on the card at every shape; exact equality. Returns
+    the largest errors, each shape's times, and the title x 256 shapes'
+    arguments (for their kernels alone in phase 8)."""
     err = {"batch": 0, "single": 0, "full": 0}
-    times = {}
+    times, title_args = {}, {}
     for dname, (chars_t, lens, words) in dictionaries.items():
         n = chars_t.shape[1]
         for q in (1, 64, 256):
@@ -698,6 +715,8 @@ def kernel_phase(sweep, encode_query, dictionaries, rng, report, baseline):
                 p_ms = time_ms(plain, warmup=1, iters=1, reps=3 if big else 5)
                 bound_ms, bound_by = sweep_bound(chars_t, lens, queries, qlens, band)
                 times[(dname, q, band)] = (k_ms, p_ms, bound_ms, bound_by)
+                if dname == "title" and q == 256:
+                    title_args[band] = (chars_t, lens, queries, qlens)
                 row = dict(dictionary=dname, terms=n, queries=q, band=band, entry=entry,
                            equal=True, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
@@ -710,7 +729,7 @@ def kernel_phase(sweep, encode_query, dictionaries, rng, report, baseline):
                 log(f"kernel {dname:>9} N={n:>8} Q={q:>3} {'band=' + str(band) if band else 'full  '} "
                     f"{entry:>6}: equal, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                     f"bound {bound_ms:.4f} ms ({bound_by}){cmp}")
-    return err, times
+    return err, times, title_args
 
 
 def record_dense_leaves(executor, calls):
@@ -914,23 +933,57 @@ def regex_layouts(words):
     return (t["chars"], t["lens"].clamp(max=32).contiguous()), (t["codes"].T, t["lens"])
 
 
+def pair_bound(regex_dfa, parts, dfa, prefix: bool):
+    """(ms, "bytes" | "operations") of one launch of the two-matrix entry:
+    the bytes and the operations of ``regex_bound`` for each of its
+    matrices, added."""
+    moved = ops = 0
+    ops_a_step = int(np.ceil(np.log2(len(dfa.boundaries) + 1))) + 2
+    for chars_t, lengths in parts:
+        steps = walk_steps(regex_dfa, chars_t, lengths, dfa, prefix)
+        moved += 5 * lengths.shape[0] + chars_t.element_size() * steps
+        ops += ops_a_step * steps
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def fresh_dfas(regex_dfa, dfa):
+    """Copies of ``dfa`` without their kernel argument, enough for one
+    ``time_ms(..., iters=20)``: a call on each builds it, as a leaf whose
+    pattern is not in ``cached_dfa`` yet does."""
+    return iter([regex_dfa.CompiledDfa(dfa.boundaries, dfa.trans, dfa.accept, dfa.dead) for _ in range(102)])
+
+
 def regex_phase(regex_dfa, index, patterns, report):
     """B8 against its plain walk, bit for bit, in full and prefix mode, on
     each shape (see the module's note); the kernel's and the plain walk's
-    ms and the bound with the shape's first pattern in full mode. Returns
-    the rows and each shape's timed arguments, for the profile phase."""
+    ms and the bound with the shape's first pattern in full mode; then the
+    two-matrix entry on each field and edge set, timed on the fields.
+    Returns the rows, the pair rows and each timed shape's arguments, for
+    the profile phase."""
     erng = np.random.default_rng(81)
     title, ent = index.fields["title"], index.fields["ent_seq"]
-    title_long = index.long_terms["title"]
+    title_long, ent_long = index.long_terms["title"], index.long_terms["ent_seq"]
     alphabet = list("abcdefghw0123456789_ -.") + ["\u00e9", "\u212a", "\u0130", "\u0131", "\u017f",
                                                   "\u65e5", "\U0001F600"]
     edge = ["".join(erng.choice(alphabet, size=int(k))) for k in erng.integers(0, 40, 20000)]
     edge[:9] = ["", "a" * 32, "a" * 33, "b" * 254, "w1" * 200, "caf\u00e9", "\u212a", "\u0130x", "\u017f"]
     edge_u16, edge_i32 = regex_layouts(edge)
+    # every warp of rows mixes ASCII rows with rows holding non-ASCII chars
+    ascii_only, wide = list("abcdefghw0123456789_"), ["\u00e9", "\u00ff", "\u0101", "\u65e5", "\U0001F600"]
+    mixed = ["".join(erng.choice(ascii_only + (wide if i % 2 else []), size=int(k)))
+             for i, k in enumerate(erng.integers(1, 60, 65536))]
+    mixed_u16, mixed_i32 = regex_layouts(mixed)
+    # long rows whose lengths within a warp run from 33 to 254 chars
+    unequal = ["".join(erng.choice(ascii_only, size=33 + (i * 37) % 222)) for i in range(32768)]
+    _unequal_u16, unequal_i32 = regex_layouts(unequal)
     s_lens = np.sort(erng.integers(1, 33, REGEX_SYNTH_TERMS)).astype(np.int32)  # sorted, as a field's rows
     s_chars = erng.choice(np.frombuffer("w0123456789abcdefgh".encode(), np.uint8), size=(32, REGEX_SYNTH_TERMS))
     s_chars = s_chars.astype(np.uint16)
     s_chars[np.arange(32)[:, None] >= s_lens[None, :]] = 0
+    # the last two have class boundaries in (127, 0xFFFF]: the kernel's search path
+    mixed_patterns = [*patterns, *REGEX_EDGE_PATTERNS, "[\u00e0-\u00ff]+x*",
+                      "[\u00e0-\u00e4]x*|[\u00e8-\u00eb]|[\u00ec-\u00ef]+"]
     shapes = {
         "title sweep rows": (title.chars_t, title.lengths, patterns),
         "title long rows": (title_long.codes.T, title_long.lengths, patterns),
@@ -938,6 +991,9 @@ def regex_phase(regex_dfa, index, patterns, report):
         "synthetic 1M": (torch.from_numpy(s_chars).cuda(), torch.from_numpy(s_lens).cuda(), patterns),
         "edge set u16": (*edge_u16, REGEX_EDGE_PATTERNS),
         "edge set int32": (*edge_i32, REGEX_EDGE_PATTERNS),
+        "mixed chars u16": (*mixed_u16, mixed_patterns),
+        "mixed chars int32": (*mixed_i32, mixed_patterns),
+        "unequal long rows int32": (*unequal_i32, mixed_patterns),
     }
     rows, timed = {}, {}
     dead_seen = False
@@ -961,21 +1017,62 @@ def regex_phase(regex_dfa, index, patterns, report):
                 matched.append(int(got.sum()))
         dfa0 = dfas[0]
         k_ms = time_ms(lambda: regex_dfa.regex_match(chars_t, lens, dfa0, False), iters=20)
+        fresh = fresh_dfas(regex_dfa, dfa0)
+        fresh_ms = time_ms(lambda: regex_dfa.regex_match(chars_t, lens, next(fresh), False), iters=20)
         p_ms = time_ms(lambda: regex_dfa.regex_match_plain(chars_t, lens, dfa0, False), warmup=1, iters=1, reps=3)
         bound_ms, bound_by, steps = regex_bound(regex_dfa, chars_t, lens, dfa0, False)
         rows[name] = dict(shape=name, rows=int(lens.shape[0]), width=int(chars_t.shape[0]),
                           elem_bytes=chars_t.element_size(), patterns=list(pats), timed_pattern=pats[0],
                           classes=len(dfa0.boundaries) + 1, states=int(dfa0.trans.shape[1]),
                           chars_walked=steps, matched=matched, equal=True, max_abs_err=max(errs), kernel_ms=k_ms,
-                          plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-        timed[name] = (chars_t, lens, dfa0)
+                          fresh_dfa_ms=fresh_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+        timed[name] = ((chars_t, lens), dfa0)
         log(f"kernel regex_match {name}: N={rows[name]['rows']}, W={rows[name]['width']}, "
             f"{len(pats)} patterns x full/prefix equal to the plain walk; {pats[0]!r} full: kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, {steps} chars walked)")
+            f"{k_ms:.4f} ms (a new DFA each call: {fresh_ms:.4f} ms), plain {p_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by}, {steps} chars walked)")
     if not dead_seen:
         raise AssertionError("no regex phase pattern has a dead state")
+    # the two-matrix entry, as a regex leaf calls it: a field's sweep rows and long rows in one launch
+    pairs = {
+        "title field": ((title.chars_t, title.lengths), (title_long.codes.T, title_long.lengths), patterns),
+        "ent_seq field": ((ent.chars_t, ent.lengths), (ent_long.codes.T, ent_long.lengths), patterns),
+        "edge set": (edge_u16, edge_i32, REGEX_EDGE_PATTERNS),
+        "mixed chars": (mixed_u16, mixed_i32, mixed_patterns),
+    }
+    pair_rows = {}
+    for name, (a, b, pats) in pairs.items():
+        dfas = [regex_dfa.compile_dfa(p, ignore_case=True) for p in pats]
+        errs = []
+        for dfa in dfas:
+            for prefix in (False, True):
+                got = regex_dfa.regex_match_pair(*a, *b, dfa, prefix)
+                want = regex_dfa.regex_match_pair_plain(*a, *b, dfa, prefix)
+                torch.cuda.synchronize()
+                if got.dtype == torch.bool and got.shape == want.shape and got.numel():
+                    errs.append(int((got.to(torch.int8) - want.to(torch.int8)).abs().max()))
+                if got.dtype != torch.bool or not torch.equal(got, want):
+                    raise AssertionError(f"B8's pair entry != its plain version on {name}, pattern "
+                                         f"{pats[dfas.index(dfa)]!r}, prefix {prefix}")
+        if not name.endswith("field"):
+            continue
+        dfa0 = dfas[0]
+        k_ms = time_ms(lambda: regex_dfa.regex_match_pair(*a, *b, dfa0, False), iters=20)
+        fresh = fresh_dfas(regex_dfa, dfa0)
+        fresh_ms = time_ms(lambda: regex_dfa.regex_match_pair(*a, *b, next(fresh), False), iters=20)
+        p_ms = time_ms(lambda: regex_dfa.regex_match_pair_plain(*a, *b, dfa0, False), warmup=1, iters=1, reps=3)
+        bound_ms, bound_by = pair_bound(regex_dfa, (a, b), dfa0, False)
+        pair_rows[name] = dict(shape=name, rows=[int(a[1].shape[0]), int(b[1].shape[0])], patterns=list(pats),
+                               timed_pattern=pats[0], equal=True, max_abs_err=max(errs), kernel_ms=k_ms,
+                               fresh_dfa_ms=fresh_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+        timed[name] = ((*a, *b), dfa0)
+        log(f"kernel regex_match_pair {name}: {pair_rows[name]['rows']} rows, {len(pats)} patterns x full/prefix "
+            f"equal to its plain version; {pats[0]!r} full: call {k_ms:.4f} ms (a new DFA each call: "
+            f"{fresh_ms:.4f} ms), plain {p_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by})")
     report["regex_rows"] = list(rows.values())
-    return rows, timed
+    report["regex_pair_rows"] = list(pair_rows.values())
+    return rows, pair_rows, timed
 
 
 def record_select_calls(field_search, index, calls):
@@ -1181,7 +1278,8 @@ def main_path_shape(sweep, calls, baseline, report):
     kernel on each field's launch at its median Q, on that launch's own
     inputs. Each field's dictionary is swept once a batch, with Q the
     batch's distinct full-width specs; the field with the most (query,
-    term) pairs over the run is the main path's shape (returned)."""
+    term) pairs over the run is the main path's shape (returned, with its
+    launch's arguments)."""
     shapes = {}
     for call in calls:
         field, chars_t, _lens, queries, qlens = call
@@ -1193,7 +1291,7 @@ def main_path_shape(sweep, calls, baseline, report):
         dict(field=c[0], terms=c[1].shape[1], queries=c[3].shape[0],
              mean_qlen=float(c[4].float().mean())) for c in calls
     ]
-    rows = {}
+    rows, args = {}, {}
     for (field, n), group in shapes.items():
         group = sorted(group, key=lambda c: c[3].shape[0])
         _f, chars_t, lens, queries, qlens = group[len(group) // 2]
@@ -1218,13 +1316,15 @@ def main_path_shape(sweep, calls, baseline, report):
             cmp = (f"; old / new / new / old "
                    f"{' / '.join(f'{t:.4f}' for t in row['compare']['old_new_new_old_ms'])} ms")
         rows[(field, n)] = row
+        args[(field, n)] = (chars_t, lens, queries, qlens)
         log(f"kernel on the main path's launch ({field}, N={n}, median Q={q}, mean qlen "
             f"{row['mean_qlen']:.2f}, mean term length {row['mean_term_len']:.2f}): equal, "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}){cmp}")
     report["main_full_shapes"] = list(rows.values())
-    main = max(rows.values(), key=lambda r: r["pairs"])
+    key = max(rows, key=lambda k: rows[k]["pairs"])
+    main = rows[key]
     log(f"main path's full-width shape: {main['field']}, N={main['terms']}, Q={main['queries']}")
-    return main
+    return main, args[key]
 
 
 # ---------------------------------------------------------------- server path
@@ -1236,6 +1336,61 @@ SERVER_PLANS = 16
 SERVER_DOC_READS = 32
 SERVER_START_S = 240  # the child's import, CUDA start, load and warmup
 SERVER_REQUEST_S = 120
+
+
+def regex_mix_child(tree: Path, index_dir: Path, queries: Path) -> dict:
+    """``--regex-mix-child``: with the ``veloci_tpu_torch`` of ``tree``, load
+    the saved index onto the card, warm it up, and send the regex mix's
+    query strings through ``search`` one at a time (the first four once
+    before), each timed on the host clock around the call, as the main
+    path times them. Returns the tree, the card, p50 / p99 / mean ms and
+    the B8 launches by entry point."""
+    sys.path.insert(0, str(tree))
+    import veloci_tpu_torch as vt
+    from veloci_tpu_torch.ops import regex_dfa
+
+    if not Path(vt.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"imported {vt.__file__}, not the package of {tree}")
+    index = vt.load_index(str(index_dir))
+    index.warmup()
+    reqs = [vt.search_query(index, vt.SearchQueryGeneratorParameters(search_term=q))
+            for q in json.loads(queries.read_text())]
+    for req in reqs[:4]:
+        vt.search(req, index)
+    entries = [getattr(regex_dfa, n) for n in ("regex_match", "regex_match_pair") if hasattr(regex_dfa, n)]
+    before = [fn.launches for fn in entries]
+    ms = []
+    for req in reqs:
+        t0 = time.perf_counter()
+        vt.search(req, index)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return dict(tree=str(tree), card=torch.cuda.get_device_name(0), requests=len(ms),
+                p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+                mean_ms=statistics.fmean(ms),
+                b8_launches={fn.__name__: fn.launches - b for fn, b in zip(entries, before)})
+
+
+def compare_regex(other: Path, index_dir: Path, query_strings, report) -> None:
+    """``--compare-regex``: the regex mix answered by ``other``'s package
+    and by this tree's, each in a child process of its own
+    (:func:`regex_mix_child`), in REGEX_AB_ROUNDS rounds of (other, this,
+    this, other); every child's line printed, then each tree's median p50."""
+    queries = ROOT / "build" / "regex_mix_queries.json"
+    queries.write_text(json.dumps(query_strings))
+    runs = []
+    for _ in range(REGEX_AB_ROUNDS):
+        for tree in (other, ROOT, ROOT, other):
+            proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--regex-mix-child", str(tree),
+                                   str(index_dir), str(queries)], capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"regex mix child on {tree}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+            runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            log(f"compare-regex: {json.dumps(runs[-1])}")
+    medians = {str(t): statistics.median(r["p50_ms"] for r in runs if r["tree"] == str(t)) for t in (other, ROOT)}
+    log(f"compare-regex: median p50 over {2 * REGEX_AB_ROUNDS} runs each: "
+        + ", ".join(f"{t} {m:.3f} ms" for t, m in medians.items()))
+    report["compare_regex"] = dict(runs=runs, median_p50_ms=medians)
 
 
 def free_port() -> int:
@@ -1588,10 +1743,16 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--compare-full", type=Path, default=None,
                         help="another full_levenshtein.cu to time against the tree's")
+    parser.add_argument("--compare-regex", type=Path, default=None,
+                        help="another tree whose veloci_tpu_torch answers the regex mix in turns with this one's")
+    parser.add_argument("--regex-mix-child", type=Path, nargs=3, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
+    if args.regex_mix_child is not None:
+        print(json.dumps(regex_mix_child(*(p.resolve() for p in args.regex_mix_child))), flush=True)
+        return
     sys.path.insert(0, str(ROOT))
     import veloci_tpu_torch as vt
     from veloci_tpu_torch.ops import _build
@@ -1672,7 +1833,7 @@ def main() -> None:
                       np.array(s_words)),
     }
     edge_phase(levenshtein_sweep, levenshtein.encode_query, rng)
-    kernel_err, kernel_times = kernel_phase(
+    kernel_err, kernel_times, title_args = kernel_phase(
         levenshtein_sweep, levenshtein.encode_query, dictionaries, rng, report, baseline
     )
     del dictionaries
@@ -1742,6 +1903,7 @@ def main() -> None:
     }
     kernel_fns["dense_resolve"] = postings.dense_resolve
     kernel_fns["regex_match"] = regex_dfa.regex_match
+    kernel_fns["regex_match_pair"] = regex_dfa.regex_match_pair
     requests_of = dict(mixes, single_fuzzy_d2=[[d] for d in singles])
     requests_of.update({name: [[d] for d in reqs] for name, reqs in ex_mixes.items()})
     requests_of["regex"] = [[d] for d in regex_specs]
@@ -1757,7 +1919,7 @@ def main() -> None:
         ("generic", ("generic",),
          ("levenshtein_sweep_banded_batch", "levenshtein_sweep_full_batch")),
         ("executor", tuple(ex_mixes), ("dense_resolve", "levenshtein_select_banded")),
-        ("regex", ("regex",), ("regex_match", "dense_resolve")),
+        ("regex", ("regex",), ("regex_match_pair", "dense_resolve")),
         ("features", (*FEATURE_LONE, "why_found", "suggest"),
          ("dense_resolve", "levenshtein_sweep_banded_batch", "levenshtein_select_banded",
           "levenshtein_sweep_full_batch")),
@@ -1772,7 +1934,7 @@ def main() -> None:
     regex_dense_calls = []  # the regex mix's leaves
     regex_docs, doc_lat = [], []  # the regex mix's documents, and each read's seconds
     wf_docs, wf_doc_lat = [], []  # the why_found mix's documents, and each request's read seconds
-    expected_b8 = 0  # B8 launches the regex mix must make: a regex leaf, each matrix of its field
+    expected_b8 = 0  # B8 launches the regex mix must make: one a regex leaf whose field has rows
     select_calls = []  # the fused selects of the lone ~2 and executor mixes
     gc.callbacks.append(on_gc)
     for path, names, needed in paths:
@@ -1780,6 +1942,7 @@ def main() -> None:
             fn.launches = 0
         postings.dense_resolve.direct_launches = 0
         routes0 = dict(index.path_counts)
+        dfa_cache0 = regex_dfa.cached_dfa.cache_info()
         for name in names:
             lat[name], answers[name], rows_per_batch[name] = [], [], []
             if name == "query_string":
@@ -1802,8 +1965,8 @@ def main() -> None:
                     doc_lat.append(time.perf_counter() - t0)
                     for q in reqs:
                         for field, _key in regex_leaf_keys(q):
-                            expected_b8 += int(index.fields[field].lengths.shape[0] > 0)
-                            expected_b8 += int(len(index.long_terms[field].ids) > 0)
+                            expected_b8 += int(index.fields[field].lengths.shape[0] + len(index.long_terms[field].ids)
+                                               > 0)
                 if name == "why_found":
                     docs = []
                     for r, q in zip(res, reqs):
@@ -1824,6 +1987,9 @@ def main() -> None:
         path_launches[path]["dense_resolve_direct"] = postings.dense_resolve.direct_launches
         path_routes[path] = {k: v - routes0.get(k, 0) for k, v in index.path_counts.items()
                              if v != routes0.get(k, 0)}
+        dfa_cache = regex_dfa.cached_dfa.cache_info()
+        path_routes[path].update(dfa_cache_hit=dfa_cache.hits - dfa_cache0.hits,
+                                 dfa_cache_miss=dfa_cache.misses - dfa_cache0.misses)
         log(f"main path {path} launches: {path_launches[path]}; routes: {path_routes[path]}")
         for k in needed:
             if path_launches[path][k] <= 0:
@@ -1832,13 +1998,15 @@ def main() -> None:
     if path_routes["executor"].get("executor", 0) <= 0:
         raise AssertionError("the executor path answered no request on the dense executor")
     host_scans = path_routes["regex"].get("regex_host_scan", 0)
-    b8_launches = path_launches["regex"]["regex_match"]
+    b8_launches = path_launches["regex"]["regex_match_pair"]
     log(f"regex path: {path_routes['regex'].get('regex_dfa', 0)} regex leaves prefiltered by B8, "
         f"{host_scans} host scans; B8 launches {b8_launches} (expected {expected_b8}: one a regex leaf "
-        f"for each matrix of its field)")
-    if host_scans or b8_launches != expected_b8 or not expected_b8:
-        raise AssertionError("the regex path did not launch B8 for every regex leaf on every field, "
-                             "or scanned a dictionary on the host")
+        f"over both matrices of its field); single-matrix launches {path_launches['regex']['regex_match']}; "
+        f"DFA cache {path_routes['regex']['dfa_cache_hit']} hits, {path_routes['regex']['dfa_cache_miss']} "
+        f"misses (a miss compiles a pattern)")
+    if host_scans or b8_launches != expected_b8 or not expected_b8 or path_launches["regex"]["regex_match"]:
+        raise AssertionError("the regex path did not launch B8 once for every regex leaf over its field's "
+                             "matrices, or scanned a dictionary on the host")
     feat = path_routes["features"]
     log(f"features path: term-boost cache {feat.get('term_boost_cache_hit', 0)} hits, "
         f"{feat.get('term_boost_cache_miss', 0)} misses (the warm-up's 4 requests cached their parts); "
@@ -1864,7 +2032,7 @@ def main() -> None:
     report["slice"]["rows_per_batch"] = rows_per_batch
     report["slice"]["path_launches"] = path_launches
     report["slice"]["path_routes"] = path_routes
-    main_full = main_path_shape(levenshtein_sweep, full_calls, baseline, report)
+    main_full, main_full_args = main_path_shape(levenshtein_sweep, full_calls, baseline, report)
     del full_calls
 
     # ---- checks: shape and order, then the CPU plain path on the same index
@@ -1929,6 +2097,8 @@ def main() -> None:
         samples_ms=ms.tolist())
     log(f"slice why_found document reads (top 10, half select {FEATURE_SELECT}, half whole): "
         f"x {len(ms)}: p50 {np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms")
+    if args.compare_regex is not None:
+        compare_regex(args.compare_regex.resolve(), index_dir, [d["regex"] for d in regex_specs], report)
 
     # ---- the server path: the port's server in a child process, over HTTP
     traffic = server_traffic(vt, index, mixes["query_string"][0], mixes["generic"][0], feat_mixes["suggest"],
@@ -1962,7 +2132,7 @@ def main() -> None:
     for spec in regex_specs[:3]:
         part = next(p for p in make(spec, index).search_req.walk_parts() if p.is_regex)
         first_of_kind.append(part.terms[0])
-    regex_rows, regex_timed = regex_phase(regex_dfa, index, first_of_kind, report)
+    regex_rows, regex_pair_rows, regex_timed = regex_phase(regex_dfa, index, first_of_kind, report)
     torch.cuda.empty_cache()
 
     # ---- B10 at the boost_term mix's first request
@@ -1979,11 +2149,13 @@ def main() -> None:
     del dense_args
     report["term_boost"]["device_ms"] = sum(device_ms(term_boost_call).values())
     log(f"B10 term-boost factor: device time (profiler) {report['term_boost']['device_ms']:.4f} ms")
-    for name, (chars_t, lens, dfa) in regex_timed.items():
-        regex_rows[name]["kernel_alone_ms"] = kernel_only_ms(
-            lambda: regex_dfa.regex_match(chars_t, lens, dfa, False), "regex_walk_kernel")
-        log(f"kernel regex_match {name}: kernel alone (profiler device events) "
-            f"{regex_rows[name]['kernel_alone_ms']:.4f} ms")
+    for name, (args, dfa) in regex_timed.items():
+        pair = name in regex_pair_rows
+        row = regex_pair_rows[name] if pair else regex_rows[name]
+        entry = regex_dfa.regex_match_pair if pair else regex_dfa.regex_match
+        row["kernel_alone_ms"] = kernel_only_ms(lambda: entry(*args, dfa, False), "dfa_walk_kernel")
+        log(f"kernel {entry.__name__} {name}: kernel alone (profiler device events) "
+            f"{row['kernel_alone_ms']:.4f} ms")
     del regex_timed
     select_row["kernel_ms"] = kernel_only_ms(
         lambda: levenshtein_sweep.levenshtein_select_banded(*select_args), "banded_select_kernel")
@@ -2018,6 +2190,23 @@ def main() -> None:
     log(f"B2 (old single-query entry) at title x 1, band 2: kernel alone (profiler device events) "
         f"{b2_kernel_ms:.4f} ms, "
         f"call (CUDA events) {kernel_times[('title', 1, 2)][0]:.4f} ms")
+    # B1 at title x 256, band 2, and B3 at the main path's shape and at
+    # title x 256, each kernel alone
+    alone = {
+        "B1 title x 256, band 2": (lambda: levenshtein_sweep.levenshtein_sweep_banded_batch(
+            *title_args[2], band=2), "banded_sweep_kernel", kernel_times[("title", 256, 2)][0]),
+        f"B3 main path ({main_full['field']}, N={main_full['terms']}, Q={main_full['queries']})": (
+            lambda: levenshtein_sweep.levenshtein_sweep_full_batch(*main_full_args), "full_sweep_kernel",
+            main_full["kernel_ms"]),
+        "B3 title x 256": (lambda: levenshtein_sweep.levenshtein_sweep_full_batch(*title_args[None]),
+                           "full_sweep_kernel", kernel_times[("title", 256, None)][0]),
+    }
+    report["sweep_kernel_only_ms"] = {}
+    for name, (fn, kernel, call_ms) in alone.items():
+        report["sweep_kernel_only_ms"][name] = kernel_only_ms(fn, kernel)
+        log(f"{name}: kernel alone (profiler device events) {report['sweep_kernel_only_ms'][name]:.4f} ms, "
+            f"call (CUDA events) {call_ms:.4f} ms")
+    del title_args, main_full_args
 
     # B1 and B2's old single-query entry at the kernel phase's title shapes
     # (band 2, Q 256 and 1; the old entry is no longer on the main path);
@@ -2062,17 +2251,21 @@ def main() -> None:
          "max_abs_err": max(r["max_abs_err"] for r in dense_rows.values()), "ms": b7["kernel_ms"],
          "plain_ms": b7["plain_ms"], "bound_ms": b7["bound_ms"], "bound_by": b7["bound_by"],
          "library_ms": b7["library_ms"]})
-    # B8 at the regex path's largest launch shape (the title's long rows:
-    # the most chars walked), its first pattern, full mode; no PyTorch call
-    # walks a DFA: library_ms is null
+    # B8: its single-matrix entry at the regex phase's largest launch shape
+    # of the index (the most chars walked), and its two-matrix entry, the
+    # main path's, at the title field's leaf; their first pattern, full
+    # mode; no PyTorch call walks a DFA: library_ms is null
     b8 = max((regex_rows[k] for k in ("title sweep rows", "title long rows", "ent_seq sweep rows")),
              key=lambda r: r["chars_walked"])
-    kernels.append(
-        {"name": "regex_match", "route": "cuda", "source": "veloci_tpu_torch/csrc/regex_dfa.cu",
-         "replaces": "veloci_tpu/ops/regex_dfa.py:339", "launches": launches["regex_match"],
-         "max_abs_err": max(r["max_abs_err"] for r in regex_rows.values()), "ms": b8["kernel_ms"],
-         "plain_ms": b8["plain_ms"], "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
-         "library_ms": None})
+    b8_pair = regex_pair_rows["title field"]
+    for name, row in (("regex_match", b8), ("regex_match_pair", b8_pair)):
+        kernels.append(
+            {"name": name, "route": "cuda", "source": "veloci_tpu_torch/csrc/regex_dfa.cu",
+             "replaces": "veloci_tpu/ops/regex_dfa.py:339", "launches": launches[name],
+             "max_abs_err": max(r["max_abs_err"] for r in (*regex_rows.values(), *regex_pair_rows.values())),
+             "ms": row["kernel_ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": None})
     report["kernels"] = kernels
     report["launches"] = launches
     out_dir = ROOT / "chiprun_out"

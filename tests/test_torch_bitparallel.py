@@ -21,6 +21,7 @@ from veloci_tpu_torch.ops.levenshtein_sweep import (
     levenshtein_sweep_full_batch_bitparallel,
     levenshtein_sweep_full_batch_plain,
 )
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 # 'š' and 'a', 'ā' (U+0101) and '\x01' share their low 8 bits
 ALPHABET = ["a", "b", "c", "š", "ā", "\x01", "日", "\U0001F600"]

@@ -15,6 +15,16 @@ from types import SimpleNamespace
 import pytest
 
 from veloci_tpu_torch.ops import _build
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
+
+
+def _join_all(threads, limit):
+    """Joins ``threads`` within one deadline of ``limit`` seconds in all;
+    returns those still alive."""
+    deadline = time.monotonic() + limit
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    return [t for t in threads if t.is_alive()]
 
 
 class _FakeLib:
@@ -42,19 +52,17 @@ def test_load_builds_once_under_threads(monkeypatch, threads):
     monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(_build, "build_all", build_all)
     monkeypatch.setattr(_build.ctypes, "CDLL", cdll)
-    barrier = threading.Barrier(threads)
+    barrier = threading.Barrier(threads, timeout=30)
     got = [None] * threads
 
     def first_use(i):
         barrier.wait()
         got[i] = _build.load("fake.cu", {"veloci_fake": []})
 
-    workers = [threading.Thread(target=first_use, args=(i,)) for i in range(threads)]
+    workers = [threading.Thread(target=first_use, args=(i,), daemon=True) for i in range(threads)]
     for w in workers:
         w.start()
-    for w in workers:
-        w.join(timeout=60)
-    assert not any(w.is_alive() for w in workers)
+    assert not _join_all(workers, 60)
     assert builds == [["fake.cu"]] and len(loads) == 1
     assert all(lib is got[0] for lib in got) and got[0] is not None
     assert got[0].veloci_fake.argtypes == []
@@ -72,7 +80,7 @@ def test_build_temporaries_are_named_per_thread(monkeypatch, tmp_path):
         def __init__(self, cmd, **_kw):
             started.append(cmd[cmd.index("-o") + 1])
 
-        def communicate(self):
+        def communicate(self, timeout=None):
             both.wait()
             return "stub", None
 
@@ -88,11 +96,9 @@ def test_build_temporaries_are_named_per_thread(monkeypatch, tmp_path):
         except RuntimeError as e:
             errors.append(str(e))
 
-    workers = [threading.Thread(target=build) for _ in range(2)]
+    workers = [threading.Thread(target=build, daemon=True) for _ in range(2)]
     for w in workers:
         w.start()
-    for w in workers:
-        w.join(timeout=60)
-    assert not any(w.is_alive() for w in workers)
+    assert not _join_all(workers, 60)
     assert len(started) == 2 and len(set(started)) == 2, started
     assert len(errors) == 2 and all("nvcc failed" in e for e in errors)

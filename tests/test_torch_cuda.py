@@ -43,7 +43,14 @@ from veloci_tpu_torch.ops.postings import (
     dense_resolve_plain,
 )
 from veloci_tpu_torch.ops.levenshtein import encode_query
-from veloci_tpu_torch.ops.regex_dfa import CompiledDfa, compile_dfa, regex_match, regex_match_plain
+from veloci_tpu_torch.ops.regex_dfa import (
+    CompiledDfa,
+    compile_dfa,
+    regex_match,
+    regex_match_pair,
+    regex_match_pair_plain,
+    regex_match_plain,
+)
 from veloci_tpu_torch.ops.levenshtein_sweep import (
     levenshtein_select_banded,
     levenshtein_select_banded_plain,
@@ -53,6 +60,7 @@ from veloci_tpu_torch.ops.levenshtein_sweep import (
     levenshtein_sweep_full_batch,
     levenshtein_sweep_full_batch_plain,
 )
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 
 @pytest.fixture
@@ -531,7 +539,7 @@ def test_regex_search_and_documents_on_card(card):
     pers = Persistence.from_built(create_indices_from_str(docs, config))
     on_cpu = TorchIndex.from_persistence(pers, "cpu")
     on_card = TorchIndex.from_persistence(pers, card)
-    before = regex_match.launches
+    before = regex_match_pair.launches
     for q in ("*bbb", "*1a*", "w1*aa", "*bbb AND w2*", "*c* w10"):
         a_req = search_query(on_card, SearchQueryGeneratorParameters(search_term=q))
         b_req = search_query(on_cpu, SearchQueryGeneratorParameters(search_term=q))
@@ -541,8 +549,53 @@ def test_regex_search_and_documents_on_card(card):
         for select in (None, ["title", "cat"]):
             da, db = search_to_result_with_doc(on_card, a, select), search_to_result_with_doc(on_cpu, b, select)
             assert [d.doc for d in da.data] == [d.doc for d in db.data]
-    assert regex_match.launches > before and not on_card.path_counts["regex_host_scan"]
+    assert regex_match_pair.launches > before and not on_card.path_counts["regex_host_scan"]
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", [False, True])
+def test_regex_match_pair_equals_plain_on_card(card, prefix):
+    """B8's two-matrix entry, one launch over a sweep matrix and long rows
+    (either may be empty), against its plain version, bit for bit; one
+    launch a call with rows, none without."""
+    rng = np.random.default_rng(24)
+    chars, codes, lens = _walk_rows(_edge_words(rng))
+    c16, c32, ln = (torch.from_numpy(a).to(card) for a in (chars, codes, lens))
+    sweep, long = (c16, ln.clamp(max=32).contiguous()), (c32.T, ln)
+    empty = (torch.zeros((32, 0), dtype=torch.uint16, device=card), torch.zeros(0, dtype=torch.int32, device=card))
+    before = regex_match_pair.launches
+    for pattern in REGEX_PATTERNS:
+        dfa = compile_dfa(pattern, ignore_case=True)
+        for a, b in ((sweep, long), (long, sweep), (sweep, empty), (empty, long)):
+            got = regex_match_pair(*a, *b, dfa, prefix)
+            want = regex_match_pair_plain(*a, *b, dfa, prefix)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.bool and torch.equal(got, want), pattern
+    assert regex_match_pair(*empty, *empty, dfa, prefix).shape == (0,)
+    assert regex_match_pair.launches == before + 4 * len(REGEX_PATTERNS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", [False, True])
+def test_regex_match_mixed_warps_on_card(card, prefix):
+    """Warps whose rows mix ASCII and non-ASCII chars, and row-major long
+    rows of unequal lengths in every warp (33 to 254 chars, the staged
+    path), in both layouts, against the plain walk."""
+    rng = np.random.default_rng(25)
+    ascii_only = list("abcxyz019_")
+    wide = ["\u00e9", "\u00ff", "\u0101", "\u65e5", "\U0001F600"]
+    mixed = ["".join(rng.choice(ascii_only + (wide if i % 2 else []), size=int(k)))
+             for i, k in enumerate(rng.integers(1, 60, 4096))]
+    unequal = ["".join(rng.choice(ascii_only, size=33 + (i * 37) % 222)) for i in range(4096)]
+    for words in (mixed, unequal):
+        chars, codes, lens = _walk_rows(words)
+        c16, c32, ln = (torch.from_numpy(a).to(card) for a in (chars, codes, lens))
+        for pattern in REGEX_PATTERNS + ["[à-ÿ]+x*", ".*日.*", "[^a]*é", "[à-ä]x*|[è-ë]|[ì-ï]+"]:
+            dfa = compile_dfa(pattern, ignore_case=True)
+            for view, lengths in ((c16, ln.clamp(max=32).contiguous()), (c32.T, ln)):
+                got = regex_match(view, lengths, dfa, prefix)
+                assert torch.equal(got, regex_match_plain(view, lengths, dfa, prefix)), pattern
 
 @pytest.mark.cuda
 def test_term_boost_factor_on_card_equals_cpu(card):

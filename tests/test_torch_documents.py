@@ -44,6 +44,7 @@ from veloci_tpu_torch.error import VelociError
 from veloci_tpu_torch.query.request import RequestSearchPart as PortSearchPart
 from veloci_tpu_torch.search.highlight import highlight_on_original_document
 from veloci_tpu_torch.search.read_document import read_data
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 ex_mod = importlib.import_module("veloci_tpu.search.executor")
 batch_mod = importlib.import_module("veloci_tpu.search.batch")

@@ -41,6 +41,7 @@ from veloci_tpu_torch import add_token_values_to_tokens as port_add_token_values
 from veloci_tpu_torch.ops.postings import dense_resolve, dense_resolve_plain, resolve_to_anchor_dense
 from veloci_tpu_torch.search import boost as port_boost
 from veloci_tpu_torch.search import executor as port_executor
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 ex_mod = importlib.import_module("veloci_tpu.search.executor")
 batch_mod = importlib.import_module("veloci_tpu.search.batch")

@@ -47,6 +47,7 @@ from veloci_tpu.query import generator as ref_generator
 import veloci_tpu_torch as vt
 from veloci_tpu_torch.search import executor as port_executor
 from veloci_tpu_torch.search import stats as port_stats
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 ex_mod = importlib.import_module("veloci_tpu.search.executor")
 batch_mod = importlib.import_module("veloci_tpu.search.batch")
@@ -376,3 +377,45 @@ def test_explain_plan_names_the_ports_route(corpus):
     before = dict(index.path_counts)
     vt.explain_plan(vt.Request.from_dict(OWN["deep_tree"]), index)
     assert dict(index.path_counts) == before  # no request was answered
+
+
+# ---------------------------------------------------------------- C10: a facet value the field does not store
+
+C10_REQUEST = {"search_req": {"search": {"terms": ["weich"], "path": GER, "levenshtein_distance": 1}},
+               "facets": [{"field": "tags[]"}], "top": 1000}
+
+
+@pytest.mark.parametrize("index", ["ref_disk", "port_built"])
+@pytest.mark.parametrize("explain", [False, True])
+def test_facet_on_a_text_longer_than_stored_counts_the_documents_values(corpus, index, explain):
+    """ROADMAP C10: ``weich~1`` on ``meanings.ger[]`` with ``facets: tags[]``
+    hits a document whose ``tags[]`` hold a text longer than the field
+    stores, so its text id lies past the field's dictionary. Through
+    ``search``, ``search(dense_only=True)`` and ``search_batch`` the port
+    counts each value as the hit documents hold it (counts taken from the
+    documents by hand), the long one named by its tokens; the reference
+    raises ``IndexError`` on its device branch and on its host branch."""
+    from collections import Counter
+
+    from corpus import TEST_DATA
+
+    pers, port = corpus[index]
+    spec = C10_REQUEST | {"explain": explain}
+    for device_branch in (True, False):
+        with pytest.MonkeyPatch.context() as mp:
+            if device_branch:
+                mp.setattr(ex_mod, "SMALL_DOCS", 0)
+                mp.setattr(batch_mod, "SMALL_DOCS", 0)
+            with pytest.raises(IndexError):
+                ex_mod.search(Request.from_dict(spec), pers)
+    answers = [vt.search(vt.Request.from_dict(spec), port),
+               vt.search(vt.Request.from_dict(spec), port, dense_only=True),
+               vt.search_batch([vt.Request.from_dict(spec)], port)[0]]
+    for res in answers:
+        assert res.num_hits == len(res.data) >= 2  # every hit: the counts are over them all
+        want = Counter(v for hit in res.data for v in TEST_DATA[hit.id].get("tags", []))
+        got = res.facets["tags[]"]
+        assert dict(got) == dict(want) and len(got) == len(want)
+        assert [c for _v, c in got] == sorted(want.values(), reverse=True)
+        assert any(len(v.encode()) > 64 for v, _c in got)  # the text the field does not store
+    assert answers[0].facets == answers[1].facets == answers[2].facets

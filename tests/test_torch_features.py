@@ -61,6 +61,7 @@ from veloci_tpu_torch.query.request import RequestSearchPart as PortPart
 from veloci_tpu_torch.search import boost as port_boost
 from veloci_tpu_torch.search import executor as port_executor
 from veloci_tpu_torch.search.field_search import fuzzy_spec, leaf_fuzzy, prefetch_fuzzy_matches, search_field
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 ex_mod = importlib.import_module("veloci_tpu.search.executor")
 batch_mod = importlib.import_module("veloci_tpu.search.batch")

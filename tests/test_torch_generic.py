@@ -45,6 +45,7 @@ from veloci_tpu_torch import create_indices_from_str, search_query
 from veloci_tpu_torch.ops.generic_step import _precompute_boost
 from veloci_tpu_torch.ops.tree_step import _apply_boost_gathered
 from veloci_tpu_torch.search.facet import facet_counts, facet_relation
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 batch_mod = importlib.import_module("veloci_tpu.search.batch")
 ex_mod = importlib.import_module("veloci_tpu.search.executor")

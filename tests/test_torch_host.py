@@ -43,6 +43,7 @@ from veloci_tpu_torch import (
 )
 from veloci_tpu_torch import native as port_native
 from veloci_tpu_torch.search import stopwords
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 VOCAB = ["hello", "help", "hells", "world", "Wörld", "x" * 40, "日本語", "a-b", "the", "Haus",
          "and", "der", "z" * 70]

@@ -32,6 +32,7 @@ from veloci_tpu_torch.ops.levenshtein_sweep import (
     levenshtein_sweep_full_batch,
     levenshtein_sweep_full_batch_plain,
 )
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 N_PAD = 4096  # a multiple of both Pallas tiles, so neither pads
 # edge lengths: empty query (pad row), 1, 31 and 32 chars

@@ -18,6 +18,7 @@ from pathlib import Path
 import pytest
 
 import torch
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in (REPO / "veloci_tpu_torch").rglob("*.py"))
@@ -130,10 +131,10 @@ def port_only(tmp_path_factory):
     return root
 
 
-def _run(args, root):
+def _run(args, root, timeout=240):
     env = dict(os.environ, PYTHONPATH=str(root))
     return subprocess.run(
-        [sys.executable, *args], cwd=root, env=env, capture_output=True, text=True, timeout=600
+        [sys.executable, *args], cwd=root, env=env, capture_output=True, text=True, timeout=timeout
     )
 
 
@@ -234,12 +235,12 @@ def test_chip_smoke_refuses_without_card_or_repo(port_only, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     for root in (REPO, port_only):
-        proc = _run(["chip_smoke.py"], root)
+        proc = _run(["chip_smoke.py"], root, timeout=90)
         assert proc.returncode != 0 and '"ok"' not in proc.stdout, root
         assert "torch.cuda.is_available() is False" in proc.stderr, proc.stderr
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     env_free = subprocess.run(
         [sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True,
-        timeout=300, env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+        timeout=90, env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
     )
     assert env_free.returncode != 0 and '"ok"' not in env_free.stdout

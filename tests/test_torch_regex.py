@@ -46,6 +46,7 @@ import veloci_tpu_torch as vt
 from veloci_tpu_torch.indices import TermDictionary
 from veloci_tpu_torch.ops import regex_dfa
 from veloci_tpu_torch.persistence import LONG_WIDTH
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 fs = importlib.import_module("veloci_tpu_torch.search.field_search")
 ex_mod = importlib.import_module("veloci_tpu.search.executor")

@@ -45,6 +45,7 @@ from veloci_tpu_torch.ops.postings import (
 )
 from veloci_tpu_torch.persistence import FieldSweep
 from veloci_tpu_torch.search import field_search
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 ref_postings = importlib.import_module("veloci_tpu.ops.postings")
 

@@ -35,6 +35,7 @@ from veloci_tpu_torch.ops.levenshtein_sweep import (
     levenshtein_sweep_banded_batch,
     levenshtein_sweep_full_batch,
 )
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 batch_mod = importlib.import_module("veloci_tpu.search.batch")
 ex_mod = importlib.import_module("veloci_tpu.search.executor")

@@ -13,6 +13,7 @@ from veloci_tpu.ops.search_step import batched_single_term_topk as ref_single_te
 from veloci_tpu.ops.topk import topk_dense_exact
 from veloci_tpu_torch.ops.search_step import batched_single_term_topk
 from veloci_tpu_torch.ops.topk import rank_key, segmented_topk
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 
 def _dense(pattern, n, rng):

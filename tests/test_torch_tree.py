@@ -31,6 +31,7 @@ from veloci_tpu.ops.tree_step import (
     tree_candidates_deep as ref_tree_candidates_deep,
 )
 from veloci_tpu_torch.ops.tree_step import PHRASE_NG, tree_candidates, tree_candidates_deep
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
 NUM_DOCS = 300
 SLOT_BITS = 24  # every packed slot of the reference fits

@@ -101,6 +101,9 @@ _CONFIG_CB = ctypes.CFUNCTYPE(
 )
 
 
+_BUILD_TIMEOUT_S = 600  # a g++ run that takes longer fails, as a failed build does
+
+
 def _build_lib(so_path: Path) -> bool:
     try:
         so_path.parent.mkdir(parents=True, exist_ok=True)
@@ -109,10 +112,11 @@ def _build_lib(so_path: Path) -> bool:
             ["g++", *_CXX_FLAGS, "-o", str(tmp), str(_SOURCE)],
             check=True,
             capture_output=True,
+            timeout=_BUILD_TIMEOUT_S,
         )
         os.replace(tmp, so_path)  # atomic: parallel builders race safely
         return True
-    except (OSError, subprocess.CalledProcessError):
+    except (OSError, subprocess.CalledProcessError, subprocess.TimeoutExpired):
         return False
 
 

@@ -32,6 +32,8 @@ _LIBS: dict = {}  # source name -> loaded ctypes.CDLL (one per process)
 # held by load() from its check to its store, so that threads reaching a
 # kernel first build and load its library once
 _LOAD_LOCK = threading.Lock()
+NVCC_TIMEOUT_S = 600.0  # one nvcc run; a build that takes longer fails
+LOAD_WAIT_S = 2 * NVCC_TIMEOUT_S  # a thread waits this long for another's build
 # every source's C entry points return a cudaError_t as int; each source
 # also exports veloci_cuda_error_string(int) -> const char*
 
@@ -51,7 +53,8 @@ def library_path(source: str) -> Path:
 def build_all(sources=None) -> dict:
     """Compile every source that has no library yet, one ``nvcc`` per source,
     all started together. Returns ``{source: library path}``; raises with
-    the compiler's output if any build fails."""
+    the compiler's output if any build fails, and if one runs past
+    ``NVCC_TIMEOUT_S`` (all are then stopped)."""
     sources = sorted(p.name for p in CSRC.glob("*.cu")) if sources is None else sources
     procs = {}
     for source in sources:
@@ -66,7 +69,12 @@ def build_all(sources=None) -> dict:
         ))
     failed = []
     for source, (out, tmp, proc) in procs.items():
-        log, _ = proc.communicate()
+        try:
+            log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for _out, _tmp, other in procs.values():
+                other.kill()
+            raise RuntimeError(f"nvcc ran past {NVCC_TIMEOUT_S:g} s building {source}") from None
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {source} (exit {proc.returncode}):\n{log}")
             continue
@@ -81,12 +89,14 @@ def load(source: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built first if needed. On
     the first load, each ``{symbol: argtypes}`` of ``signatures`` is
     declared to return an int (a ``cudaError_t``). Safe under threads: the
-    first caller builds and loads, the others wait for it and get the same
-    library."""
+    first caller builds and loads, the others wait for it, at most
+    ``LOAD_WAIT_S``, and get the same library."""
     lib = _LIBS.get(source)
     if lib is not None:
         return lib
-    with _LOAD_LOCK:
+    if not _LOAD_LOCK.acquire(timeout=LOAD_WAIT_S):
+        raise RuntimeError(f"waited {LOAD_WAIT_S:g} s for another thread's build of {source}")
+    try:
         lib = _LIBS.get(source)
         if lib is None:
             lib = ctypes.CDLL(str(build_all([source])[source]))
@@ -97,4 +107,6 @@ def load(source: str, signatures: dict) -> ctypes.CDLL:
             lib.veloci_cuda_error_string.restype = ctypes.c_char_p
             lib.veloci_cuda_error_string.argtypes = [ctypes.c_int]
             _LIBS[source] = lib
+    finally:
+        _LOAD_LOCK.release()
     return lib

@@ -12,10 +12,15 @@ anchors, DFAs past ``MAX_STATES`` states or ``MAX_CLASSES`` classes).
 (a field's ``FieldSweep.chars_t``, or ``LongTerms.codes`` transposed): the
 counterpart of ``regex_match_device`` (``:384``), whose XLA-built
 ``_sweep_kernel`` (``:339``) advances every term's state by one-hot
-``[S, S]`` matmuls. On a CUDA tensor it launches the hand-written kernel
-``csrc/regex_dfa.cu`` (one thread a row, a table walk with the DFA staged
-in shared memory); on a CPU tensor it takes :func:`regex_match_plain`, the
-same walk in PyTorch. The wrapper counts its launches in ``.launches``.
+``[S, S]`` matmuls. :func:`regex_match_pair` walks two matrices (a field's
+sweep rows and its long rows) in one launch, into one output. On a CUDA
+tensor each launches the hand-written kernel ``csrc/regex_dfa.cu`` (one
+thread a row, a row's chars loaded ahead of its walk, one shared-memory
+read a step from the folded tables of :func:`build_walk_argument`, built
+once a ``CompiledDfa``); on a CPU tensor each takes its plain version,
+:func:`regex_match_plain` or :func:`regex_match_pair_plain`, the same walk
+in PyTorch. :func:`cached_dfa` compiles a pattern and builds its argument
+once for all the leaves and requests that send it. Each wrapper counts its launches in ``.launches``.
 
 Semantics of the walk, shared by both: a char's class is the number of
 boundaries ``<=`` it (a code point above 0xFFFF, or a negative pad code,
@@ -28,6 +33,7 @@ step, or at the start when state 0 accepts; rows of length 0 never match.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, FrozenSet, List, Optional, Set, Tuple
 
 import numpy as np
@@ -35,7 +41,8 @@ import torch
 
 from . import _build
 
-__all__ = ["compile_dfa", "CompiledDfa", "regex_match", "regex_match_plain"]
+__all__ = ["compile_dfa", "CompiledDfa", "build_walk_argument", "cached_dfa", "regex_match", "regex_match_pair",
+           "regex_match_pair_plain", "regex_match_plain", "walk_argument"]
 
 MAX_STATES = 64
 MAX_CLASSES = 30
@@ -346,15 +353,32 @@ def compile_dfa(pattern: str, ignore_case: bool = False) -> Optional[CompiledDfa
 # ------------------------------------------------------------- the DFA walk
 
 SOURCE = "regex_dfa.cu"
-# (chars, element bytes, stride between positions, stride between rows,
-# width, lengths, n, host boundaries, boundary count, host transitions,
-# states, accept mask, dead state, prefix, out, stream)
+# matrix a and matrix b, each (chars, element bytes, stride between
+# positions, stride between rows, width, lengths, n); the host WALK_ARG
+# buffer, prefix, out, stream
+_ROWS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_int]
 SIGNATURE = {
-    "veloci_regex_match": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                           ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_void_p],
+    "veloci_regex_walk": [*_ROWS, *_ROWS, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 }
+
+DFA_CACHE_SIZE = 512  # patterns kept by cached_dfa
+ACCEPTS = 0x40  # a transition entry's bit: the next state accepts
+DEAD = 0x80  # a transition entry's bit: the next state is the dead state
+# The kernel's DFA argument (``csrc/regex_dfa.cu``'s ``WalkDfa``, byte for
+# byte): the transitions ``[C, S]`` folded with the next state's bits, each
+# ASCII char's class times S, and the boundaries in (127, 0xFFFF] for the
+# others.
+WALK_ARG = np.dtype([
+    ("next", np.uint8, (MAX_CLASSES * MAX_STATES,)),
+    ("ascii", np.uint16, (128,)),
+    ("high", np.uint32, (32,)),
+    ("nhigh", np.int32),
+    ("high_class", np.int32),
+    ("states", np.int32),
+    ("start_accepts", np.int32),
+    ("used", np.int32),
+], align=True)
 
 
 def _check(chars_t, lengths, dfa) -> None:
@@ -405,43 +429,87 @@ def regex_match_plain(chars_t, lengths, dfa: CompiledDfa, prefix: bool = False) 
     return matched & (lens > 0)
 
 
-def _tables(dfa: CompiledDfa):
-    """The kernel's host arguments: boundaries u32, the transition table u8
-    ``[C, S]`` row-major, the accept set as a bit mask."""
-    bounds = np.ascontiguousarray(dfa.boundaries, dtype=np.uint32)
-    trans = np.ascontiguousarray(dfa.trans, dtype=np.uint8)
-    mask = sum(1 << int(s) for s in np.flatnonzero(dfa.accept))
-    return bounds, trans, mask
+def regex_match_pair_plain(a_chars_t, a_lengths, b_chars_t, b_lengths, dfa: CompiledDfa,
+                           prefix: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`regex_match_pair`: the two walks of
+    :func:`regex_match_plain`, concatenated."""
+    return torch.cat([regex_match_plain(a_chars_t, a_lengths, dfa, prefix),
+                      regex_match_plain(b_chars_t, b_lengths, dfa, prefix)])
 
 
-def regex_match(chars_t, lengths, dfa: CompiledDfa, prefix: bool = False) -> torch.Tensor:
-    """``chars_t [W, N]`` uint16 or int32, any strides (a field's
-    ``chars_t``, or ``LongTerms.codes.T``), ``lengths [N] int32`` ->
-    ``[N] bool``: the rows the DFA accepts, a full match or, with
-    ``prefix``, a prefix match (see the module's note).
+def build_walk_argument(dfa: CompiledDfa) -> np.ndarray:
+    """The kernel's DFA argument, a 0-d :data:`WALK_ARG` array. A char's
+    class folds into a table offset, ``class * S``: for a code point below
+    128 it is ``ascii[c]``; for any other (above 0xFFFF read as U+FFFD) it
+    is ``(high_class + the count of high boundaries <= c) * S``, ``high``
+    holding the boundaries in ``(127, 0xFFFF]`` (one at 0x10000, which
+    ``.`` and negated classes give, no code point reaches). The step from
+    state ``s`` on a char of offset ``o`` is ``next[o + s]``: the next state
+    in the low six bits, with :data:`ACCEPTS` when it accepts and
+    :data:`DEAD` when it is the dead state."""
+    c, s = dfa.trans.shape
+    bounds = np.asarray(dfa.boundaries, dtype=np.int64)
+    trans = np.asarray(dfa.trans, dtype=np.int64)
+    bits = np.where(np.asarray(dfa.accept, dtype=bool), ACCEPTS, 0)
+    if dfa.dead >= 0:
+        bits[dfa.dead] |= DEAD
+    arg = np.zeros((), WALK_ARG)
+    arg["next"][: c * s] = (trans | bits[trans]).ravel()
+    arg["ascii"] = np.searchsorted(bounds, np.arange(128), side="right") * s
+    high = bounds[(bounds > 127) & (bounds <= _MAX_CP)]  # a code point never passes 0x10000
+    arg["high"][: len(high)] = high
+    arg["nhigh"], arg["high_class"], arg["states"] = len(high), int((bounds <= 127).sum()), s
+    arg["start_accepts"], arg["used"] = bool(dfa.accept[0]), c * s
+    return arg
 
-    One launch of ``csrc/regex_dfa.cu`` for a CUDA tensor (the DFA's tables
-    travel as kernel arguments: no copy); :func:`regex_match_plain` for a
-    CPU tensor."""
-    _check(chars_t, lengths, dfa)
-    dev = chars_t.device
-    if dev.type == "cpu":
-        return regex_match_plain(chars_t, lengths, dfa, prefix)
-    if dev.type != "cuda":
-        raise ValueError(f"no regex walk for device {dev}")
-    w, n = chars_t.shape
-    out = torch.empty(n, dtype=torch.bool, device=dev)
-    if n == 0:
+
+def walk_argument(dfa: CompiledDfa) -> np.ndarray:
+    """``dfa``'s kernel argument (:func:`build_walk_argument`), built at the
+    first walk of this ``CompiledDfa`` and kept on it. A caller holds the
+    array while the kernel reads its address."""
+    arg = getattr(dfa, "walk_arg", None)
+    if arg is None:
+        arg = dfa.walk_arg = build_walk_argument(dfa)
+    return arg
+
+
+@functools.lru_cache(maxsize=DFA_CACHE_SIZE)
+def cached_dfa(pattern: str, ignore_case: bool) -> Optional[CompiledDfa]:
+    """:func:`compile_dfa` with its kernel argument built, kept for the last
+    ``DFA_CACHE_SIZE`` ``(pattern, ignore_case)`` pairs: a regex leaf's
+    pattern compiles once for every field it expands over and for every
+    later request that sends it again. The DFA is shared: nothing changes
+    it after this."""
+    dfa = compile_dfa(pattern, ignore_case=ignore_case)
+    if dfa is not None:
+        walk_argument(dfa)
+    return dfa
+
+
+def _rows(chars_t, lengths):
+    return (chars_t.data_ptr(), chars_t.element_size(), chars_t.stride(0), chars_t.stride(1), chars_t.shape[0],
+            lengths.data_ptr(), lengths.shape[0])
+
+
+_NO_ROWS = (0, 2, 0, 0, 0, 0, 0)
+
+
+def _walk(a, b, dfa, prefix) -> torch.Tensor:
+    """One launch of ``csrc/regex_dfa.cu`` over matrix ``a`` and, unless
+    ``b`` is None, matrix ``b`` (each ``(chars_t, lengths)``, on one CUDA
+    device), into one ``[N_a + N_b]`` bool tensor; no launch when that is
+    empty."""
+    dev = a[0].device
+    out = torch.empty(a[1].shape[0] + (0 if b is None else b[1].shape[0]), dtype=torch.bool, device=dev)
+    if out.numel() == 0:
         return out
-    bounds, trans, mask = _tables(dfa)
     lib = _build.load(SOURCE, SIGNATURE)
+    arg = walk_argument(dfa)
 
     def launch():
-        return lib.veloci_regex_match(
-            chars_t.data_ptr(), chars_t.element_size(), chars_t.stride(0), chars_t.stride(1), w,
-            lengths.data_ptr(), n, bounds.ctypes.data, len(bounds), trans.ctypes.data, trans.shape[1],
-            mask, int(dfa.dead), int(bool(prefix)), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+        return lib.veloci_regex_walk(
+            *_rows(*a), *(_NO_ROWS if b is None else _rows(*b)), arg.ctypes.data, int(bool(prefix)),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
 
     if dev.index is None or dev.index == torch.cuda.current_device():
@@ -451,9 +519,54 @@ def regex_match(chars_t, lengths, dfa: CompiledDfa, prefix: bool = False) -> tor
             err = launch()
     if err != 0:
         msg = lib.veloci_cuda_error_string(err).decode()
-        raise RuntimeError(f"veloci_regex_match kernel launch failed: {msg} ({err})")
-    regex_match.launches += 1
+        raise RuntimeError(f"veloci_regex_walk kernel launch failed: {msg} ({err})")
+    return out
+
+
+def _on_card(chars_t) -> bool:
+    dev = chars_t.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no regex walk for device {dev}")
+    return dev.type == "cuda"
+
+
+def regex_match(chars_t, lengths, dfa: CompiledDfa, prefix: bool = False) -> torch.Tensor:
+    """``chars_t [W, N]`` uint16 or int32, any strides (a field's
+    ``chars_t``, or ``LongTerms.codes.T``), ``lengths [N] int32`` ->
+    ``[N] bool``: the rows the DFA accepts, a full match or, with
+    ``prefix``, a prefix match (see the module's note).
+
+    One launch of ``csrc/regex_dfa.cu`` for a CUDA tensor (the DFA's tables
+    travel as a kernel argument built once a ``CompiledDfa``: no copy);
+    :func:`regex_match_plain` for a CPU tensor."""
+    _check(chars_t, lengths, dfa)
+    if not _on_card(chars_t):
+        return regex_match_plain(chars_t, lengths, dfa, prefix)
+    out = _walk((chars_t, lengths), None, dfa, prefix)
+    if out.numel():
+        regex_match.launches += 1
     return out
 
 
 regex_match.launches = 0
+
+
+def regex_match_pair(a_chars_t, a_lengths, b_chars_t, b_lengths, dfa: CompiledDfa,
+                     prefix: bool = False) -> torch.Tensor:
+    """:func:`regex_match` over two matrices on one device (a field's sweep
+    rows and its long rows' ``codes.T``) -> ``[N_a + N_b] bool``, the rows of
+    ``a`` then those of ``b``: one launch for both on a CUDA tensor, none
+    when both are empty; :func:`regex_match_pair_plain` on the CPU."""
+    _check(a_chars_t, a_lengths, dfa)
+    _check(b_chars_t, b_lengths, dfa)
+    if b_chars_t.device != a_chars_t.device:
+        raise ValueError(f"the two matrices are on {a_chars_t.device} and {b_chars_t.device}")
+    if not _on_card(a_chars_t):
+        return regex_match_pair_plain(a_chars_t, a_lengths, b_chars_t, b_lengths, dfa, prefix)
+    out = _walk((a_chars_t, a_lengths), (b_chars_t, b_lengths), dfa, prefix)
+    if out.numel():
+        regex_match_pair.launches += 1
+    return out
+
+
+regex_match_pair.launches = 0

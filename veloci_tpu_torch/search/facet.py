@@ -24,9 +24,10 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..create import ANCHOR_TO_TEXT_ID, PARENT_TO_VALUE_ID
+from ..create import ANCHOR_TO_TEXT_ID, PARENT_TO_VALUE_ID, TEXTINDEX
 from ..indices import EMPTY, Direct
 from ..utils import get_steps_to_anchor
+from .read_document import text_for_id
 
 __all__ = ["FacetRelation", "facet_relation", "facet_counts", "format_counts", "get_facet"]
 
@@ -114,16 +115,34 @@ def facet_counts(rel: FacetRelation, seg, anchors, num_queries: int) -> torch.Te
 
 def format_counts(index, field: str, counts: np.ndarray, top) -> List[Tuple[str, int]]:
     """Counts per value id -> ``[(value text, count)]``, count descending
-    (stable: value ids ascending among equal counts), first ``top``."""
+    (stable: value ids ascending among equal counts), first ``top``.
+
+    A value id past the field's dictionary is a text longer than the field
+    stores (``do_not_store_text_longer_than``, create.py ``get_text_info``):
+    it is named by its tokens' texts joined, as a document read rebuilds it
+    (:func:`.read_document.text_for_id`), and equal texts count as one value
+    at their first id. The reference names every id from the dictionary and
+    raises ``IndexError`` on such an id (ROADMAP C10)."""
     value_ids = np.flatnonzero(counts)
     if len(value_ids) == 0:
         return []
-    vals = counts[value_ids]
-    order = np.argsort(-vals, kind="stable")
+    prop = get_steps_to_anchor(field)[-1]
+    dictionary = index.get_dictionary(prop)
+    stored = value_ids < len(dictionary.terms)
+    names = [dictionary.terms[int(v)] for v in value_ids[stored]]
+    ids, vals = value_ids[stored], counts[value_ids[stored]]
+    if not stored.all():
+        merged = {}  # a long text -> [its first id, its count]
+        for v in value_ids[~stored].tolist():
+            first_count = merged.setdefault(text_for_id(index, prop[: -len(TEXTINDEX)], v), [v, 0])
+            first_count[1] += int(counts[v])
+        names += list(merged)
+        ids = np.concatenate([ids, [v for v, _c in merged.values()]])
+        vals = np.concatenate([vals, [c for _v, c in merged.values()]])
+    order = np.lexsort((ids, -vals.astype(np.int64)))
     if top is not None:
         order = order[:top]
-    dictionary = index.get_dictionary(get_steps_to_anchor(field)[-1])
-    return [(dictionary.terms[int(value_ids[i])], int(vals[i])) for i in order]
+    return [(names[i], int(vals[i])) for i in order]
 
 
 def get_facet(index, facet_req, dense: torch.Tensor) -> List[Tuple[str, int]]:

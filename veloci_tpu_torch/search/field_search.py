@@ -12,8 +12,9 @@ with or without ``starts_with``, and regex terms.
 A regex leaf's answer is the reference's host ``re`` scan (``:600-602``):
 the terms that ``re.fullmatch``, or ``re.match`` for ``starts_with``, the
 pattern, with ``IGNORECASE`` unless ``ignore_case`` is false. Kernel B8
-(:func:`..ops.regex_dfa.regex_match`) prefilters every row of the field's
-sweep matrix and long terms with the pattern's case-folded DFA; the rows
+(:func:`..ops.regex_dfa.regex_match_pair`) prefilters every row of the
+field's sweep matrix and long terms, in one launch, with the pattern's
+case-folded DFA; the rows
 the DFA may misjudge join the candidates (:func:`_regex_candidates`), and
 every candidate is checked with ``re``.
 """
@@ -41,7 +42,7 @@ from ..ops.levenshtein_sweep import (
     levenshtein_sweep_banded_batch,
     levenshtein_sweep_full_batch,
 )
-from ..ops.regex_dfa import compile_dfa, regex_match
+from ..ops.regex_dfa import cached_dfa, regex_match_pair
 from ..persistence import FOLD_SPECIAL, LONG_WIDTH, NONASCII
 from ..query.request import DEFAULT_SNIPPET_INFO
 from ..utils import normalize_text
@@ -328,24 +329,20 @@ def _dfa_escapes(pattern: str) -> Tuple[bool, bool]:
 def _regex_candidates(index, field: str, dfa, shorthand: bool, prefix: bool) -> np.ndarray:
     """The field's term ids that may match: every row kernel B8 accepts,
     over the sweep matrix (rows mapped through its ``sweep_ids``, never
-    taken as term ids) and over the long terms' codes, and the rows the
-    DFA may misjudge (:func:`..persistence.regex_flags`): FOLD_SPECIAL
-    rows always, NONASCII rows for a pattern with ``\\d``, ``\\w`` or
-    ``\\s``, long terms past ``LONG_WIDTH`` chars, and the terms in no row.
-    Sorted, unique."""
+    taken as term ids) and over the long terms' codes, both in one launch
+    and one copy to the host, and the rows the DFA may misjudge
+    (:func:`..persistence.regex_flags`): FOLD_SPECIAL rows always, NONASCII
+    rows for a pattern with ``\\d``, ``\\w`` or ``\\s``, long terms past
+    ``LONG_WIDTH`` chars, and the terms in no row. Sorted, unique."""
     rr = index.regex_rows[field]
     force = FOLD_SPECIAL | (NONASCII if shorthand else 0)
     sweep, long = index.fields[field], index.long_terms[field]
-    walks = []
-    if sweep.lengths.shape[0]:
-        walks.append((regex_match(sweep.chars_t, sweep.lengths, dfa, prefix),
-                      rr.sweep_flags, np.zeros(len(rr.sweep_flags), bool), rr.sweep_ids))
-    if len(long.ids):
-        walks.append((regex_match(long.codes.T, long.lengths, dfa, prefix),
-                      rr.long_flags, long.host_lengths > LONG_WIDTH, long.ids))
+    hit = regex_match_pair(sweep.chars_t, sweep.lengths, long.codes.T, long.lengths, dfa, prefix).cpu().numpy()
+    m = len(rr.sweep_flags)
     parts = [rr.unswept]
-    for hit, flags, past, ids in walks:
-        parts.append(ids[np.flatnonzero(hit.cpu().numpy() | ((flags & force) != 0) | past)])
+    for hit_rows, flags, past, ids in ((hit[:m], rr.sweep_flags, False, rr.sweep_ids),
+                                      (hit[m:], rr.long_flags, long.host_lengths > LONG_WIDTH, long.ids)):
+        parts.append(ids[np.flatnonzero(hit_rows | ((flags & force) != 0) | past)])
     return np.unique(np.concatenate(parts).astype(np.int64))
 
 
@@ -353,7 +350,8 @@ def regex_dfa(part):
     """A regex leaf's matcher and DFA -> (``re`` match function, the DFA or
     None, whether the pattern uses ``\\d``, ``\\w`` or ``\\s``). The pattern is
     the term when ``re`` compiles it, else the escaped term; the DFA is
-    compiled from that same pattern, case-folded (a superset), and is None
+    compiled from that same pattern, case-folded (a superset), once a
+    pattern (:func:`..ops.regex_dfa.cached_dfa`), and is None
     for a pattern outside ASCII or one that
     :func:`..ops.regex_dfa.compile_dfa` does not read as ``re`` does or
     refuses."""
@@ -368,7 +366,7 @@ def regex_dfa(part):
     if pattern.pattern.isascii():
         reads_like_re, shorthand = _dfa_escapes(pattern.pattern)
         if reads_like_re:
-            dfa = compile_dfa(pattern.pattern, ignore_case=True)
+            dfa = cached_dfa(pattern.pattern, True)
     return fn, dfa, shorthand
 
 

@@ -17,7 +17,7 @@ from ..error import MissingTextIdError
 from ..indices import Direct
 from ..utils import LEAF, NodeTree, extract_prop_name, get_all_steps_to_anchor, to_node_tree
 
-__all__ = ["read_data", "read_tree", "get_read_tree_from_fields"]
+__all__ = ["read_data", "read_tree", "get_read_tree_from_fields", "text_for_id"]
 
 
 def get_read_tree_from_fields(persistence, fields: List[str]) -> NodeTree:
@@ -51,9 +51,16 @@ def _join_and_get_text_for_ids(persistence, vid: int, prop: str) -> Optional[str
         text_value_id = int(vals[0]) if len(vals) else None
     if text_value_id is None:
         return None
-    num_text_ids = persistence.num_text_ids(prop)
-    if text_value_id >= num_text_ids:
+    return text_for_id(persistence, prop, text_value_id)
+
+
+def text_for_id(persistence, prop: str, text_value_id: int) -> str:
+    """The text of one of ``prop``'s text ids (reference src/search.rs:253-268):
+    its term, or, for an id past ``num_text_ids`` (a text longer than the
+    field stores), its tokens' texts joined."""
+    if text_value_id >= persistence.num_text_ids(prop):
         # long-text escape hatch: rebuild from token ids
+        field_name = prop + TEXTINDEX
         t2t = persistence.key_value_stores.get(field_name + TEXT_ID_TO_TOKEN_IDS)
         if t2t is None or not t2t.has_values(text_value_id):
             raise MissingTextIdError(
@@ -63,8 +70,7 @@ def _join_and_get_text_for_ids(persistence, vid: int, prop: str) -> Optional[str
         return "".join(
             dictionary.ord_to_term(int(tok)) for tok in t2t.get_values(text_value_id)
         )
-    dictionary = persistence.get_dictionary(prop)
-    return dictionary.ord_to_term(text_value_id)
+    return persistence.get_dictionary(prop).ord_to_term(text_value_id)
 
 
 def read_tree(persistence, anchor_id: int, tree: NodeTree) -> Any:

@@ -23,7 +23,9 @@ another; with no GPU the load raises, and nothing carries on on the CPU.
 A database is warmed up after its load (``TorchIndex.warmup``) unless
 ``VELOCI_WARMUP=0``. Lone searches and suggests that arrive together fold
 into one ``search_batch`` or ``suggest_batch`` (``VELOCI_FOLD=0`` turns this
-off, ``VELOCI_FOLD_MAX`` caps a fold). Every kernel launch stays on the
+off, ``VELOCI_FOLD_MAX`` caps a fold); a handler waits at most
+``_FOLD_WAIT_S`` (600 s) for its answer, and a fold loop that died is
+replaced. Every kernel launch stays on the
 calling thread's current stream.
 """
 
@@ -161,7 +163,10 @@ def _params_from_query(qs: Dict[str, str]) -> SearchQueryGeneratorParameters:
 # load). VELOCI_FOLD=0 disables.
 _FOLD_ENABLED = os.environ.get("VELOCI_FOLD", "1") != "0"
 _MAX_FOLD = int(os.environ.get("VELOCI_FOLD_MAX", "256"))
-_fold_queue: Optional["_queue.Queue"] = None
+# how long a handler waits for its folded answer; each second it also
+# replaces a fold loop that died, so the queue drains
+_FOLD_WAIT_S = 600.0
+_fold_queue: "_queue.Queue" = _queue.Queue()
 _fold_thread: Optional[threading.Thread] = None
 _fold_lock = threading.Lock()
 
@@ -178,68 +183,89 @@ class _FoldItem:
         self.kind = kind
 
 
+def _answer_fold(batch) -> None:
+    """Answers one fold: a ``suggest_batch`` or ``search_batch`` for each
+    index and kind (``search`` for a lone request)."""
+    by_pers: Dict[tuple, tuple] = {}
+    for it in batch:
+        by_pers.setdefault((id(it.pers), it.kind), (it.pers, []))[1].append(it)
+    count_path("fold_dispatches")
+    if len(batch) > 1:
+        count_path("fold_folded_requests", len(batch))
+    for (_pid, kind), (pers, items) in by_pers.items():
+        try:
+            if kind == "suggest":
+                res = suggest_batch(pers, [it.request for it in items])
+                for it, r in zip(items, res):
+                    it.result = r
+            elif len(items) == 1:
+                items[0].result = search(items[0].request, pers)
+            else:
+                res = search_batch([it.request for it in items], pers)
+                for it, r in zip(items, res):
+                    it.result = r
+        except VelociError as e:
+            # A bad request (unknown field, invalid boost) raises for the
+            # whole batch it was folded into: answer each request of that
+            # fold alone, so its neighbours get their own answers
+            # (ROADMAP C9). Counted as fold_retried_alone.
+            if len(items) == 1:
+                items[0].error = e
+            else:
+                count_path("fold_retried_alone", len(items))
+                for it in items:
+                    try:
+                        it.result = (suggest(pers, it.request) if kind == "suggest"
+                                     else search(it.request, pers))
+                    except Exception as e1:  # noqa: BLE001 - surfaced per request
+                        it.error = e1
+        except Exception as e:  # noqa: BLE001 - surfaced per request
+            for it in items:
+                if it.result is None:
+                    it.error = e
+
+
 def _fold_loop() -> None:  # pragma: no cover - exercised via threads in tests
     while True:
-        item = _fold_queue.get()
-        batch = [item]
+        batch = [_fold_queue.get()]
         while len(batch) < _MAX_FOLD:
             try:
                 batch.append(_fold_queue.get_nowait())
             except _queue.Empty:
                 break
-        by_pers: Dict[tuple, tuple] = {}
-        for it in batch:
-            by_pers.setdefault((id(it.pers), it.kind), (it.pers, []))[1].append(it)
-        count_path("fold_dispatches")
-        if len(batch) > 1:
-            count_path("fold_folded_requests", len(batch))
-        for (_pid, kind), (pers, items) in by_pers.items():
-            try:
-                if kind == "suggest":
-                    res = suggest_batch(pers, [it.request for it in items])
-                    for it, r in zip(items, res):
-                        it.result = r
-                elif len(items) == 1:
-                    items[0].result = search(items[0].request, pers)
-                else:
-                    res = search_batch([it.request for it in items], pers)
-                    for it, r in zip(items, res):
-                        it.result = r
-            except VelociError as e:
-                # A bad request (unknown field, invalid boost) raises for the
-                # whole batch it was folded into: answer each request of that
-                # fold alone, so its neighbours get their own answers
-                # (ROADMAP C9). Counted as fold_retried_alone.
-                if len(items) == 1:
-                    items[0].error = e
-                else:
-                    count_path("fold_retried_alone", len(items))
-                    for it in items:
-                        try:
-                            it.result = (suggest(pers, it.request) if kind == "suggest"
-                                         else search(it.request, pers))
-                        except Exception as e1:  # noqa: BLE001 - surfaced per request
-                            it.error = e1
-            except Exception as e:  # noqa: BLE001 - surfaced per request
-                for it in items:
-                    if it.result is None:
-                        it.error = e
-            for it in items:
+        try:
+            _answer_fold(batch)
+        except Exception as e:  # noqa: BLE001 - a fault outside a group's search
+            for it in batch:
+                if it.result is None and it.error is None:
+                    it.error = e
+        finally:  # every item of the fold is answered, whatever ended it
+            for it in batch:
+                if it.result is None and it.error is None:
+                    it.error = RuntimeError("the fold loop ended before answering")
                 it.event.set()
 
 
-def _folded(pers, request: Request, kind: str):
-    global _fold_queue, _fold_thread
-    if _fold_thread is None:
+def _start_fold_loop() -> None:
+    """Starts the fold loop, or a new one if the last has died."""
+    global _fold_thread
+    if _fold_thread is None or not _fold_thread.is_alive():
         with _fold_lock:
-            if _fold_thread is None:
-                _fold_queue = _queue.Queue()
-                t = threading.Thread(target=_fold_loop, daemon=True, name="veloci-fold")
-                t.start()
-                _fold_thread = t
+            if _fold_thread is None or not _fold_thread.is_alive():
+                _fold_thread = threading.Thread(target=_fold_loop, daemon=True, name="veloci-fold")
+                _fold_thread.start()
+
+
+def _folded(pers, request: Request, kind: str):
     item = _FoldItem(pers, request, kind)
+    _start_fold_loop()
     _fold_queue.put(item)
-    item.event.wait()
+    waited = 0.0
+    while not item.event.wait(1.0):
+        waited += 1.0
+        if waited >= _FOLD_WAIT_S:
+            raise TimeoutError(f"no answer from the fold loop in {_FOLD_WAIT_S:g} s")
+        _start_fold_loop()
     if item.error is not None:
         raise item.error
     return item.result
