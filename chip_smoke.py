@@ -126,6 +126,33 @@ Phases (any failure is an exception and a non-zero exit):
              just before and read just after (the path's launches: B1, the
              fused select, B3 and B7 must launch); its concurrent search
              burst is profiled in phase 8.
+             The eighth main path, ``mesh``: the index attached to a mesh
+             of 8 document shards (25,000 documents each), every shard on
+             the one card (``MeshContext``; and a [2, 4] [q, d] mesh for
+             one batch), so it measures the per-shard work and the merges,
+             not collectives across cards. The reference's multichip
+             battery's seven shapes (seed 13, zipf words, the ``cat`` facet
+             and the ``pop`` Log10 boost): a single term; an OR of two
+             terms with a cat filter, the boost and the facet; a term at
+             ``~1``; an AND of two words of one document's title; a term
+             under a filter of half the documents (8 of the 16 cat
+             values); a term at ``~1`` with a cat filter and the boost; an
+             OR of two such ANDs and a term. 32 of each alone through
+             ``search``, then one ``search_batch`` of 256 of them, on the
+             unsharded index, then with the launch counters set to 0 on
+             the 8-shard mesh (with a regex, a ``boost_term`` and a
+             ``text_locality`` request, which ride the mesh's per-request
+             executor) and on the [2, 4] mesh; every mesh answer must
+             equal the unsharded one (ids, order, num_hits, facets, f32
+             score bits), and B7 and the fused select must launch. p50 /
+             p99 of each shape on both, the batches' wall times; B7 and
+             the fused select then checked bit for bit against their plain
+             versions on each shard's shapes (B7 at the path's single term
+             with the most rows in shard 0, the select over each shard's
+             length window), with their times and bounds; the path's lone
+             requests and its batch under the profiler in phase 8. The
+             kernels line gives each kernel's launches on this path
+             (``mesh_launches``).
 5. dense   -- kernel B7 (``csrc/dense_resolve.cu``), its direct path and
              its keys path, each against its plain version on the card,
              bit-equal, at the main path's largest multi-term leaf (its
@@ -1739,6 +1766,246 @@ def server_phase(vt, index, index_dir, cpu_index, traffic, kernel_fns, postings,
     return launches, local, srv
 
 
+# ---------------------------------------------------------------- mesh path
+MESH_SHARDS = 8  # document shards, all on the one card (the reference's multichip battery: 8 devices)
+MESH_GRID = (2, 4)  # the second batch's [q, d] mesh
+MESH_LONE = 32  # lone requests of each of the battery's seven shapes
+MESH_BATCH = 256
+MESH_DEVICE = "cuda"  # every cell of the meshes; a CPU rehearsal sets "cpu"
+MESH_PROFILED = 4  # lone requests of each shape under the profiler, in phase 8
+
+
+def mesh_shapes(index, vocab, probs, rng):
+    """The reference's multichip battery (``__graft_entry__.py:213-372``):
+    seven request shapes, MESH_LONE of each, terms drawn from the corpus's
+    zipfian vocabulary, with its ``cat`` facet and ``pop`` boost. A pair of
+    AND terms is two words of one document's title."""
+    boost = [{"path": "pop", "boost_fun": "Log10", "param": 1}]
+    half = {"or": {"queries": [{"search": {"terms": [f"c{i}"], "path": "cat"}} for i in range(8)]}}
+
+    def word():
+        return str(rng.choice(vocab, p=probs))
+
+    def leaf(term, **kw):
+        return {"search": dict({"terms": [term], "path": "title"}, **kw)}
+
+    def cat():
+        return {"search": {"terms": [f"c{int(rng.integers(16))}"], "path": "cat"}}
+
+    def pair():
+        while True:
+            doc = json.loads(index.doc_loader.get_doc(int(rng.integers(index.num_docs))))
+            words = sorted(set(doc["title"].split()))
+            if len(words) >= 2:
+                a, b = rng.choice(words, size=2, replace=False)
+                return leaf(str(a)), leaf(str(b))
+
+    shapes = {
+        "single_term": lambda: {"search_req": leaf(word())},
+        "or_filter_boost_facet": lambda: {"search_req": {"or": {"queries": [leaf(word()), leaf(word())]}},
+                                          "filter": cat(), "boost": boost, "facets": [{"field": "cat"}]},
+        "fuzzy_d1": lambda: {"search_req": leaf(mutate(word(), 1, rng), levenshtein_distance=1)},
+        "and_pair": lambda: {"search_req": {"and": {"queries": list(pair())}}},
+        "term_half_filter": lambda: {"search_req": leaf(word()), "filter": half},
+        "fuzzy_filter_boost": lambda: {"search_req": leaf(mutate(word(), 1, rng), levenshtein_distance=1),
+                                       "filter": cat(), "boost": boost},
+        "deep_or_of_ands": lambda: {"search_req": {"or": {"queries": [
+            {"and": {"queries": list(pair())}}, {"and": {"queries": list(pair())}}, leaf(word())]}}},
+    }
+    return {name: [dict(make(), top=10) for _ in range(MESH_LONE)] for name, make in shapes.items()}
+
+
+def with_mesh(index, ctx, fn):
+    """``fn()`` with the mesh context ``ctx`` attached to ``index`` (None:
+    the unsharded index), the index's own context restored after."""
+    old, index.mesh_ctx = index.mesh_ctx, ctx
+    try:
+        return fn()
+    finally:
+        index.mesh_ctx = old
+
+
+def lat_row(samples_s):
+    ms = np.array(samples_s) * 1e3
+    return dict(n=len(ms), p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+                samples_ms=ms.tolist())
+
+
+def mesh_phase(vt, index, shapes, riders, make, kernel_fns, postings, report):
+    """The eighth main path, ``mesh``: the index attached to a mesh of
+    MESH_SHARDS document shards on the card (and a MESH_GRID [q, d] mesh
+    for one batch). MESH_LONE lone requests of each shape through
+    ``search`` and one ``search_batch`` of MESH_BATCH, first on the
+    unsharded index, then, with the launch counters set to 0 just before
+    and read just after, on the mesh, with the riders (a regex request, a
+    ``boost_term`` and a ``text_locality`` request, which the mesh answers
+    on its per-request executor); every mesh answer must equal the
+    unsharded one (ids, order, num_hits, facets, f32 score bits). Returns
+    the path's launches, the two mesh contexts and the requests."""
+    from veloci_tpu_torch.parallel.mesh_executor import MeshContext, build_doc_mesh
+    from veloci_tpu_torch.parallel.sharding import build_mesh
+
+    t_path = t0 = time.perf_counter()
+    ctx = MeshContext(index, build_doc_mesh(MESH_SHARDS, [MESH_DEVICE] * MESH_SHARDS))
+    q, d = MESH_GRID
+    grid = MeshContext(index, build_mesh(d, q, [MESH_DEVICE] * (q * d)))
+    torch.cuda.synchronize()
+    attach_s = time.perf_counter() - t0
+    lone = {name: [make(spec, index) for spec in specs] for name, specs in shapes.items()}
+    rider_reqs = {name: make(spec, index) for name, spec in riders.items()}
+    flat = [r for reqs in lone.values() for r in reqs]
+    batch = [flat[i % len(flat)] for i in range(MESH_BATCH)]
+    for c in (None, ctx, grid):  # first touches: the sharded dictionaries, filter masks, boost factors
+        with_mesh(index, c, lambda: [vt.search(reqs[0], index) for reqs in lone.values()])
+        with_mesh(index, c, lambda: vt.search_batch(batch[:8], index))
+    torch.cuda.synchronize()
+
+    def run(c):
+        lat, ans = {}, {}
+        for name, reqs in lone.items():
+            lat[name], ans[name] = [], []
+            for r in reqs:
+                t1 = time.perf_counter()
+                ans[name].append(with_mesh(index, c, lambda r=r: vt.search(r, index)))
+                lat[name].append(time.perf_counter() - t1)
+        for name, r in rider_reqs.items():
+            ans[name] = [with_mesh(index, c, lambda r=r: vt.search(r, index))]
+        return lat, ans
+
+    def run_batch(c):
+        t1 = time.perf_counter()
+        res = with_mesh(index, c, lambda: vt.search_batch(batch, index))
+        return (time.perf_counter() - t1) * 1e3, res
+
+    want_lat, want = run(None)
+    want_batch_ms, want_batch = run_batch(None)
+    torch.cuda.synchronize()
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    postings.dense_resolve.direct_launches = 0
+    routes0 = dict(index.path_counts)
+    got_lat, got = run(ctx)
+    batch_ms, got_batch = run_batch(ctx)
+    grid_ms, got_grid = run_batch(grid)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    launches["dense_resolve_direct"] = postings.dense_resolve.direct_launches
+    routes = {k: v - routes0.get(k, 0) for k, v in index.path_counts.items() if v != routes0.get(k, 0)}
+    for name in got:
+        for a, b, r in zip(got[name], want[name], lone.get(name, [rider_reqs.get(name)])):
+            check_result(a, {"top": r.top if r.top is not None else 10})
+            if result_key(a) != result_key(b):
+                raise AssertionError(f"mesh answer != the unsharded index's for {name}: {r}")
+    for label, res in (("[1, 8]", got_batch), (f"{list(MESH_GRID)}", got_grid)):
+        if [result_key(a) for a in res] != [result_key(b) for b in want_batch]:
+            raise AssertionError(f"the mesh {label} search_batch != the unsharded search_batch")
+    if sum(bool(a.data) for name in lone for a in got[name]) < len(flat) // 2:
+        raise AssertionError("the mesh path's requests found too little")
+    per_request = routes.get("mesh_executor", 0)
+    log(f"mesh: {MESH_SHARDS} document shards on {MESH_DEVICE} ({ctx.dps} docs a shard), and a "
+        f"{list(MESH_GRID)} [q, d] mesh, built in {attach_s:.2f} s (the combined postings cut at the shard "
+        f"bounds); every shard on the one card: this path measures the per-shard work and the merges, "
+        f"not collectives across cards")
+    rows = {}
+    for name in lone:
+        rows[name] = dict(mesh=lat_row(got_lat[name]), unsharded=lat_row(want_lat[name]))
+        m, u = rows[name]["mesh"], rows[name]["unsharded"]
+        log(f"mesh lone {name:>22} x {m['n']}: p50 {m['p50_ms']:.3f} ms, p99 {m['p99_ms']:.3f} ms; "
+            f"unsharded p50 {u['p50_ms']:.3f} ms, p99 {u['p99_ms']:.3f} ms")
+    log(f"mesh search_batch of {MESH_BATCH}: [1, {MESH_SHARDS}] {batch_ms:.1f} ms, {list(MESH_GRID)} "
+        f"{grid_ms:.1f} ms; unsharded {want_batch_ms:.1f} ms (wall, host clock)")
+    log(f"mesh riders on the per-request mesh executor: {sorted(rider_reqs)}; mesh_executor requests "
+        f"{per_request}")
+    log(f"mesh path launches: {launches}; routes: {routes}")
+    log(f"checked: {len(flat) + len(rider_reqs)} lone mesh answers and {2 * MESH_BATCH} batched ones "
+        f"identical to the unsharded index's; the mesh path took {time.perf_counter() - t_path:.1f} s")
+    for k in ("dense_resolve", "levenshtein_select_banded"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the main path mesh")
+    if per_request < len(rider_reqs):
+        raise AssertionError("the riders did not take the mesh's per-request executor")
+    report["mesh"] = dict(shards=MESH_SHARDS, grid=list(MESH_GRID), docs_per_shard=ctx.dps, attach_s=attach_s,
+                          lone=rows, batch_ms=batch_ms, grid_batch_ms=grid_ms, unsharded_batch_ms=want_batch_ms,
+                          launches=launches, routes=routes)
+    return launches, ctx, lone, batch
+
+
+def mesh_kernel_phase(postings, sweep, levenshtein, field_search, ctx, lone, report):
+    """B7 and the fused select on one shard's shapes (the mesh's first
+    shard, its docs), against their plain versions, bit for bit: B7 at the
+    mesh path's single term with the most rows in shard 0 (and at that
+    leaf on every shard), the select over each shard's length window of the
+    fuzzy_d1 shape's word with the most matches in shard 0, at band 2, d 1. ms (CUDA events for B7, the
+    host clock for the select, which reads its matches back), the plain
+    versions', the bounds."""
+    index = ctx.index
+    shards = ctx.combined()
+    base = index.key_base["title"][0]
+    ho0 = shards.shards[0].host_offsets
+    best = None
+    for r in lone["single_term"] + lone["term_half_filter"]:
+        ids, scores = field_search.get_term_ids_in_field(index, r.search_req.part, {})
+        if len(ids):
+            g = ids.astype(np.int64) + base
+            rows = int((ho0[g + 1] - ho0[g]).sum())
+            if best is None or rows > best[0]:
+                best = (rows, g, scores)
+    _rows, gtids, scores = best
+    errs = []
+    for i in range(ctx.d):
+        csr, n = shards.csr(i), ctx.shard_docs(i)
+        *args, direct = postings.csr_resolve_args(csr, gtids, scores, n)
+        want = postings.dense_resolve_plain(*args)
+        for path in {direct, False}:
+            got = postings.dense_resolve(*args, path)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"dense_resolve != plain on shard {i}")
+            errs.append(float((got - want).abs().max()))
+        if i == 0:
+            args0, direct0 = args, direct
+    b7 = dict(terms=len(gtids), rows=int(args0[5]), docs=int(args0[6]), direct=bool(direct0),
+              ms=time_ms(lambda: postings.dense_resolve(*args0, direct0), iters=50),
+              plain_ms=time_ms(lambda: postings.dense_resolve_plain(*args0), warmup=1, iters=3),
+              max_abs_err=max(errs))
+    b7["bound_ms"], b7["bound_by"] = dense_bound(args0)
+    log(f"mesh kernel dense_resolve at one shard's leaf (T={b7['terms']}, rows={b7['rows']}, docs={b7['docs']}, "
+        f"direct path {b7['direct']}): equal to plain on all {ctx.d} shards; {b7['ms']:.4f} ms, plain "
+        f"{b7['plain_ms']:.4f} ms, bound {b7['bound_ms']:.6f} ms ({b7['bound_by']})")
+    dictionary = ctx.sharded_dict("title")
+    dist = 1
+
+    def shard0_matches(word):
+        w = dictionary.window(0, len(word) - dist, len(word) + dist)
+        q, n = levenshtein.encode_query(word)
+        return len(sweep.levenshtein_select_banded(w.chars_t, w.lengths, w.sweep_ids, q, n, 2, dist)[0])
+
+    # the fuzzy_d1 shape's word with the most matches in shard 0's window
+    word = max((r.search_req.part.terms[0].lower() for r in lone["fuzzy_d1"]), key=shard0_matches)
+    query, qlen = levenshtein.encode_query(word)
+    checked = 0
+    for i in range(ctx.d):
+        w = dictionary.window(i, len(word) - dist, len(word) + dist)
+        if not w.lengths.shape[0]:
+            continue
+        args = (w.chars_t, w.lengths, w.sweep_ids, query, qlen, 2, dist)
+        got, want = sweep.levenshtein_select_banded(*args), sweep.levenshtein_select_banded_plain(*args)
+        if not all(g.dtype == v.dtype and np.array_equal(g, v) for g, v in zip(got, want)):
+            raise AssertionError(f"fused select != plain on shard {i}'s window")
+        checked += 1
+        if i == 0:
+            sel_args, matches = args, len(got[0])
+    sel = dict(word=word, window_rows=int(sel_args[1].shape[0]), shard_rows=int(dictionary.shards[0].lengths.shape[0]),
+               matches=matches, shards_checked=checked, ms=wall_ms(lambda: sweep.levenshtein_select_banded(*sel_args)),
+               plain_ms=wall_ms(lambda: sweep.levenshtein_select_banded_plain(*sel_args), warmup=1, iters=5),
+               max_abs_err=0)
+    sel["bound_ms"], sel["bound_by"], _passing = select_bound(sel_args[1], qlen, 2, dist, matches)
+    log(f"mesh kernel levenshtein_select_banded over shard 0's window ({sel['window_rows']} of "
+        f"{sel['shard_rows']} rows, {matches} matches): equal to plain on {checked} shards' windows; "
+        f"{sel['ms']:.4f} ms, plain {sel['plain_ms']:.4f} ms, bound {sel['bound_ms']:.6f} ms ({sel['bound_by']})")
+    report["mesh"]["kernels"] = dict(dense_resolve=b7, levenshtein_select_banded=sel)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--compare-full", type=Path, default=None,
@@ -2110,6 +2377,17 @@ def main() -> None:
     log(f"main path launches, the server path's included: {launches}")
     del cpu_index
 
+    # ---- the mesh path: 8 document shards on the card, against the unsharded index
+    riders = {"regex": regex_specs[0], "boost_term": feat_mixes["boost_term"][0],
+              "text_locality": feat_mixes["text_locality"][0]}
+    path_launches["mesh"], mesh_ctx, mesh_lone, mesh_batch = mesh_phase(
+        vt, index, mesh_shapes(index, vocab, probs, np.random.default_rng(13)), riders, make, kernel_fns,
+        postings, report)
+    launches = {k: sum(p[k] for p in path_launches.values())
+                for k in [*kernel_fns, "dense_resolve_direct"]}
+    log(f"main path launches, the server and mesh paths' included: {launches}")
+    mesh_kernel_phase(postings, levenshtein_sweep, levenshtein, field_search, mesh_ctx, mesh_lone, report)
+
     # ---- kernel B7 at the main path's largest multi-term leaf and on a 6M-document plane
     def leaf_rows(call):
         leaf = postings.dense_resolve_args(index, *call)
@@ -2176,6 +2454,9 @@ def main() -> None:
         for name in ("why_found", "suggest")
     })
     profiled["server_concurrent"] = (traffic["search_concurrent"], lambda calls: burst(server_url, calls))
+    profiled["mesh_lone"] = ([r for reqs in mesh_lone.values() for r in reqs[:MESH_PROFILED]],
+                             lambda reqs: with_mesh(index, mesh_ctx, lambda: [vt.search(r, index) for r in reqs]))
+    profiled["mesh_batch"] = (mesh_batch, lambda reqs: with_mesh(index, mesh_ctx, lambda: vt.search_batch(reqs, index)))
     profile_phase(profiled, report)
     local_server.shutdown()
     enc, n_chars = levenshtein.encode_query(mutate(str(title_words[len(title_words) // 3]), 1, rng))
@@ -2266,6 +2547,8 @@ def main() -> None:
              "ms": row["kernel_ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
              "library_ms": None})
+    for row in kernels:  # each kernel's launches on the mesh path, of those in "launches"
+        row["mesh_launches"] = path_launches["mesh"][row["name"]]
     report["kernels"] = kernels
     report["launches"] = launches
     out_dir = ROOT / "chiprun_out"

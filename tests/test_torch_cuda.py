@@ -286,6 +286,56 @@ def test_executor_on_card_equals_cpu(card):
     assert on_card.path_counts["executor"] == len(reqs) + 3 and dense_resolve.launches > before
 
 
+@pytest.mark.cuda
+def test_mesh_on_card_equals_unsharded(card):
+    """An 8-shard mesh and a [2, 4] mesh on the card answer ``search``,
+    ``search(dense_only=True)`` and ``search_batch`` as the unsharded index
+    on the card does, bit for bit, launching B7 and the fused select."""
+    from veloci_tpu_torch.parallel.mesh_executor import build_doc_mesh
+    from veloci_tpu_torch.parallel.sharding import build_mesh
+
+    rng = np.random.default_rng(15)
+    vocab = [f"w{i:x}{'abcdefgh'[i % 8] * (1 + i % 7)}" for i in range(800)]
+    docs = "\n".join('{"title": "%s", "cat": "c%d", "pop": %d}' % (" ".join(rng.choice(vocab, size=5)),
+                                                                  rng.integers(16), rng.integers(0, 1000))
+                     for _ in range(3000))
+    config = '["*GLOBAL*"]\nfeatures = ["All"]\n["cat"]\nfacet = true\n["pop".boost]\nboost_type = "f32"\n'
+    index = TorchIndex.from_persistence(Persistence.from_built(create_indices_from_str(docs, config)), card)
+
+    def leaf(t, **kw):
+        return {"search": dict({"terms": [t], "path": "title"}, **kw)}
+
+    boost = [{"path": "pop", "boost_fun": "Log10", "param": 1}]
+    dicts = [
+        {"search_req": leaf(vocab[1])},
+        {"search_req": {"or": {"queries": [leaf(vocab[2]), leaf(vocab[9])]}}, "facets": [{"field": "cat"}],
+         "filter": {"search": {"terms": ["c3"], "path": "cat"}}, "boost": boost},
+        {"search_req": leaf(vocab[5] + "x", levenshtein_distance=1)},
+        {"search_req": {"and": {"queries": [leaf(vocab[1]), leaf(vocab[4])]}}, "boost": boost},
+        {"search_req": {"or": {"queries": [{"and": {"queries": [leaf(vocab[1]), leaf(vocab[2])]}},
+                                           {"and": {"queries": [leaf(vocab[3]), leaf(vocab[7])]}}, leaf(vocab[8])]}}},
+        {"search_req": leaf(vocab[6]), "boost_term": [{"terms": [vocab[7]], "path": "title"}], "text_locality": True},
+    ]
+    reqs = [Request.from_dict(d) for d in dicts]
+
+    def answers():
+        out = [search(r, index) for r in reqs] + [search(r, index, dense_only=True) for r in reqs]
+        out += search_batch(reqs, index)
+        return [(a.num_hits, [(h.id, np.float32(h.score).view(np.int32).item()) for h in a.data], a.facets)
+                for a in out]
+
+    want = answers()
+    assert sum(w[0] > 0 for w in want) >= len(want) - 3
+    b7, sel = dense_resolve.launches, levenshtein_select_banded.launches
+    for mesh in (build_doc_mesh(8), build_mesh(4, 2)):
+        index.attach_mesh(mesh)
+        try:
+            assert answers() == want
+        finally:
+            index.detach_mesh()
+    assert dense_resolve.launches > b7 and levenshtein_select_banded.launches > sel
+
+
 def _card_csr(rng, card, num_keys, num_docs, scores01=None):
     """A CSR of runs (20% empty, anchors up to num_docs + 50) on the card
     and its host offsets; ``scores01`` the row scores, else seeded."""

@@ -1,0 +1,28 @@
+"""The cases of ``test_torch_executor.py`` on the document-sharded mesh,
+against the port's unsharded index, on a ``[1, 8]`` and a ``[2, 4]`` mesh
+of CPU devices, through ``search``, ``search(dense_only=True)`` and
+``search_batch`` (:mod:`mesh_suites`). The companion of
+``test_torch_mesh.py``; the generic and search corpora's cases are in
+``test_torch_mesh_suites_generic.py`` and
+``test_torch_mesh_suites_search.py``, so that the runner's workers take
+the three corpora side by side.
+
+Tolerance: exact: ids, order, ``num_hits``, facet lists, the f32 bits of
+every score, and the raised error's type.
+"""
+
+import test_torch_executor as te
+import pytest
+
+import mesh_suites
+from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
+
+
+@pytest.fixture(scope="module")
+def answers():
+    return mesh_suites.detached_answers(te)
+
+
+@pytest.mark.parametrize("shape", list(mesh_suites.SHAPES.values()), ids=list(mesh_suites.SHAPES))
+def test_suite_cases_on_the_mesh_equal_detached(answers, shape):
+    mesh_suites.check_on_mesh(answers, shape)

@@ -2,8 +2,10 @@
 package ``veloci_tpu/``, runs from a tree that holds only the port, the
 native indexer's source and ``chip_smoke.py`` (its search, a regex request,
 a document read, warmup, a boost_term / text_locality / why_found request,
-suggest, an explained request, ``explain_plan``, and its server, stats and
-CLI, imported and answering over HTTP, included), and refuses a CUDA device
+suggest, an explained request, ``explain_plan``, its server, stats and
+CLI, imported and answering over HTTP, and ``parallel/``: an attached
+8-shard CPU mesh answering as the unsharded index does, and the host
+fan-out over separate indices, included), and refuses a CUDA device
 it does not have. ``chip_smoke.py`` refuses to run without a card, in the
 repository, in that tree and alone."""
 
@@ -105,6 +107,18 @@ with tempfile.TemporaryDirectory() as d:
     srv.shutdown()
 assert body["data"] and all(d["explain"] for d in body["data"]), body
 assert stats.snapshot()["fallback_reasons"].get("explain"), stats.snapshot()
+from veloci_tpu_torch.parallel.mesh_executor import build_doc_mesh
+from veloci_tpu_torch.parallel.shards import build_sharded
+mesh_reqs = [Request.from_dict({"search_req": deep}), Request.from_dict(feat), regex,
+             Request.from_dict({"search_req": leaf("helo", levenshtein_distance=1)})]
+detached = [search(r, index) for r in mesh_reqs] + search_batch(mesh_reqs, index)
+index.attach_mesh(build_doc_mesh(8, ["cpu"] * 8))
+on_mesh = [search(r, index) for r in mesh_reqs] + search_batch(mesh_reqs, index)
+index.detach_mesh()
+assert [(r.num_hits, r.data) for r in on_mesh] == [(r.num_hits, r.data) for r in detached], (on_mesh, detached)
+assert index.path_counts["mesh_batch"] and index.path_counts["mesh_executor"], index.path_counts
+fanned = build_sharded(docs.split("\n"), "{}", shard_size=150, device="cpu")
+assert len(fanned.shards) == 3 and fanned.search(Request.from_dict({"search_req": leaf("hello")})).data
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (m == "jax" or m.startswith("jax."))]
 assert not loaded, loaded
 assert sys.argv[1] != "block" or sys.modules["jax"] is None and sys.modules["veloci_tpu"] is None
@@ -189,6 +203,11 @@ def _reaches_reference(tree):
             and not _CITATION.fullmatch(node.value)
         ):
             yield node.value
+
+
+def test_scan_covers_the_mesh():
+    """The import scan reads the mesh's modules too."""
+    assert {f"veloci_tpu_torch/parallel/{m}.py" for m in ("sharding", "mesh_executor", "shards")} <= set(PORT_FILES)
 
 
 @pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])

@@ -360,6 +360,115 @@ def test_concurrent_mixed_requests_equal_sequential(servers):
     assert together == alone * 3
 
 
+def test_listen_backlog_holds_a_burst():
+    """64 clients connect before the accept loop runs: the kernel completes
+    every handshake into the listen queue, and each client, once the loop
+    runs, gets its answer. With socketserver's backlog of 5 the kernel drops
+    the rest of the handshakes; under load, a client whose handshake was
+    dropped after it sent its request is reset (the cause of the concurrent
+    burst's ``ConnectionResetError``)."""
+    import select
+    import socket
+
+    srv = port_server.make_server("127.0.0.1", 0, device="cpu")
+    port = srv.server_address[1]
+    clients = []
+    try:
+        for _ in range(64):
+            c = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            c.setblocking(False)
+            c.connect_ex(("127.0.0.1", port))
+            clients.append(c)
+        deadline = time.monotonic() + 5.0
+        pending = set(clients)
+        while pending and time.monotonic() < deadline:
+            _r, ready, _x = select.select([], list(pending), [], 0.2)
+            pending -= {c for c in ready if c.getsockopt(socket.SOL_SOCKET, socket.SO_ERROR) == 0}
+        assert not pending, f"{len(pending)} of 64 handshakes not completed before the accept loop ran"
+        for c in clients:
+            c.setblocking(True)
+            c.settimeout(60)
+            c.sendall(b"GET /version HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n")
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        for c in clients:
+            body = b""
+            while chunk := c.recv(4096):
+                body += chunk
+            assert body.startswith(b"HTTP/1.") and body.endswith(b"0.8"), body
+    finally:
+        for c in clients:
+            c.close()
+        _stop(srv)
+
+
+def _fold_items(pers):
+    """The parity requests that the server folds (lone searches and
+    suggests, GET and POST), as ``_FoldItem`` s: (label, item)."""
+    out = []
+    for path in GETS:
+        parsed = urllib.parse.urlparse(path)
+        qs = {k: v[0] for k, v in urllib.parse.parse_qs(parsed.query).items()}
+        if parsed.path == "/DB/search":
+            try:
+                request = vt.search_query(pers, port_server._params_from_query(qs))
+            except port_server.VelociError:
+                continue  # answered 400 before it reaches the fold
+            if qs.get("select"):
+                request.select = port_server._csv(qs["select"])
+            out.append((path, port_server._FoldItem(pers, request)))
+        elif parsed.path == "/DB/suggest":
+            request = vt.suggest_query(qs.get("query", ""), pers, int(qs["top"]) if qs.get("top") else None, None,
+                                       int(qs["levenshtein"]) if qs.get("levenshtein") else None,
+                                       port_server._csv(qs.get("fields")))
+            out.append((path, port_server._FoldItem(pers, request, "suggest")))
+    for path, body in POSTS:
+        if path == "/DB/search":
+            out.append((f"POST {body}", port_server._FoldItem(pers, vt.Request.from_dict(body))))
+        elif path == "/DB/search_query_params":
+            request = vt.search_query(pers, vt.SearchQueryGeneratorParameters.from_dict(body))
+            if body.get("select"):
+                request.select = port_server._csv(body["select"])
+            out.append((f"POST {body}", port_server._FoldItem(pers, request)))
+        elif path == "/DB/suggest":
+            out.append((f"POST {body}", port_server._FoldItem(pers, vt.Request.from_dict(body), "suggest")))
+    return out
+
+
+def _folded(pers, items):
+    """Each item's answer when ``items`` are answered as one fold, as the
+    server serialises it (the error's type and text for an error)."""
+    fresh = [port_server._FoldItem(pers, it.request, it.kind) for it in items]
+    port_server._answer_fold(fresh)
+    out = []
+    for it in fresh:
+        if it.error is not None:
+            out.append((type(it.error).__name__, str(it.error)))
+        elif it.kind == "suggest":
+            out.append(json.dumps(it.result))
+        else:
+            out.append(_comparable("", json.dumps(vt.search_to_result_with_doc(pers, it.result,
+                                                                               it.request.select).to_dict())))
+    return out
+
+
+def test_fold_answers_do_not_depend_on_the_neighbours(dbs):
+    """Every folded parity request, answered in folds of two (each pair of
+    one kind: a fold answers each kind apart) and in one fold of all of
+    them (``server._answer_fold``, no threads, no timing), gets the answer
+    it gets alone."""
+    pers = vt.load_index(str(dbs / "test_all"), "cpu")
+    labelled = _fold_items(pers)
+    items = [it for _label, it in labelled]
+    assert sum(it.kind == "search" for it in items) >= 15 and sum(it.kind == "suggest" for it in items) >= 3
+    alone = [_folded(pers, [it])[0] for it in items]
+    assert _folded(pers, items) == alone
+    for i in range(len(items)):
+        for j in range(i + 1, len(items)):
+            if items[i].kind != items[j].kind:
+                continue
+            assert _folded(pers, [items[i], items[j]]) == [alone[i], alone[j]], (labelled[i][0], labelled[j][0])
+
+
 def test_index_counters_exact_under_threads(dbs):
     """Server threads add to one index's counters at once: with a short
     switch interval and 36 threads, no addition is lost. (The interpreter

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +32,9 @@ from . import _build
 from .search_step import gather_runs
 
 __all__ = [
+    "Csr",
+    "csr_resolve",
+    "csr_resolve_args",
     "dense_fast_path",
     "dense_max_row_score",
     "dense_resolve",
@@ -187,31 +191,33 @@ dense_resolve.launches = 0
 dense_resolve.direct_launches = 0  # of them, on the direct path
 
 
-def dense_resolve_args(index, field: str, term_ids: np.ndarray, term_scores: np.ndarray):
-    """One field's matched term ids and f32 scores -> :func:`dense_resolve`'s
-    arguments on the index's device, the last of them whether its direct
-    path may be taken (:func:`dense_fast_path`, asked only on a card), or
-    None when the field has no postings or no term matched. Term ids past
-    the field's scored keys are dropped.
+class Csr(NamedTuple):
+    """A posting CSR on one device, as :func:`dense_resolve` reads it: an
+    index's combined CSR, or one document shard of it
+    (:class:`..parallel.sharding.ShardedPostings`)."""
+
+    offsets: torch.Tensor  # [num_keys + 2] int64, on the device
+    packed: torch.Tensor  # [nnz, 2] int32 (anchor, f32 bits of score/100)
+    host_offsets: np.ndarray  # the offsets, on the host
+    max_row_score: object  # dense_max_row_score of its row scores
+
+
+def csr_resolve_args(csr: Csr, gtids: np.ndarray, scores: np.ndarray, num_docs: int):
+    """Global term ids and their f32 scores -> :func:`dense_resolve`'s
+    arguments over ``csr``, the last of them whether its direct path may be
+    taken (:func:`dense_fast_path`, asked only on a card).
 
     The leaf's three small arrays travel as one buffer in one copy:
     ``row_starts [T + 1]`` int64, then the term ids and the scores' bits,
     int32 each. On a card the buffer is pinned and the copy asynchronous;
     PyTorch's pinned-memory cache does not hand the buffer out again
     before the copy has run."""
-    if field not in index.key_base or not len(term_ids):
-        return None
-    base, num_keys = index.key_base[field]
-    term_ids = np.asarray(term_ids, dtype=np.int64)
-    keep = term_ids < num_keys
-    gtids = term_ids[keep] + base
-    scores = np.asarray(term_scores, dtype=np.float32)[keep]
     t = len(gtids)
-    dev = index.packed.device
+    dev = csr.packed.device
     cuda = dev.type == "cuda"
     host = torch.empty(2 * t + 1, dtype=torch.int64, pin_memory=cuda)
     buf = host.numpy()
-    ho = index.host_offsets
+    ho = csr.host_offsets
     buf[0] = 0
     np.cumsum(ho[gtids + 1] - ho[gtids], out=buf[1 : t + 1])
     words = buf[t + 1 :].view(np.int32)
@@ -219,9 +225,35 @@ def dense_resolve_args(index, field: str, term_ids: np.ndarray, term_scores: np.
     words[t:] = scores.view(np.int32)
     on_dev = host.to(dev, non_blocking=True)
     words_d = on_dev[t + 1 :].view(torch.int32)
-    return (index.offsets, index.packed, words_d[:t], words_d[t:].view(torch.float32),
-            on_dev[: t + 1], int(buf[t]), index.num_docs,
-            cuda and dense_fast_path(index.max_row_score, scores))
+    return (csr.offsets, csr.packed, words_d[:t], words_d[t:].view(torch.float32),
+            on_dev[: t + 1], int(buf[t]), num_docs, cuda and dense_fast_path(csr.max_row_score, scores))
+
+
+def csr_resolve(csr: Csr, gtids: np.ndarray, scores: np.ndarray, num_docs: int) -> torch.Tensor:
+    """The ``[num_docs]`` plane of global term ids ``gtids`` with f32
+    ``scores`` over ``csr`` (:func:`dense_resolve`); zeros, and no launch,
+    when their runs hold no row."""
+    gtids = np.asarray(gtids, dtype=np.int64)
+    ho = csr.host_offsets
+    if not len(gtids) or not num_docs or not int((ho[gtids + 1] - ho[gtids]).sum()):
+        return torch.zeros(num_docs, dtype=torch.float32, device=csr.packed.device)
+    return dense_resolve(*csr_resolve_args(csr, gtids, np.asarray(scores, dtype=np.float32), num_docs))
+
+
+def dense_resolve_args(index, field: str, term_ids: np.ndarray, term_scores: np.ndarray):
+    """One field's matched term ids and f32 scores -> :func:`dense_resolve`'s
+    arguments on the index's device (:func:`csr_resolve_args`), or None
+    when the field has no postings or no term matched. Term ids past the
+    field's scored keys are dropped."""
+    if field not in index.key_base or not len(term_ids):
+        return None
+    base, num_keys = index.key_base[field]
+    term_ids = np.asarray(term_ids, dtype=np.int64)
+    keep = term_ids < num_keys
+    scores = np.asarray(term_scores, dtype=np.float32)[keep]
+    cuda = index.packed.device.type == "cuda"  # the direct path is asked about on a card only
+    csr = Csr(index.offsets, index.packed, index.host_offsets, index.max_row_score if cuda else None)
+    return csr_resolve_args(csr, term_ids[keep] + base, scores, index.num_docs)
 
 
 def resolve_to_anchor_dense(index, field: str, term_ids: np.ndarray, term_scores: np.ndarray):

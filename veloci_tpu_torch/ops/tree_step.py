@@ -39,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .generic_step import _HIT_EPS
+from .generic_step import _apply_boost
 from .search_step import gather_runs
 from .topk import score_desc_key
 
@@ -55,7 +55,6 @@ __all__ = [
 _EPS = float(np.float32(1e-5))  # the reference's hit gate, as an f32 value
 _I31 = (1 << 31) - 1
 PHRASE_NG = 1 << 30  # a phrase pseudo-row's subtree gate: never passes
-_SKIP_TOL = 1e-5  # skip_when_score: |score - value| below this exempts a hit
 
 
 def tree_candidates_single(seg, a, s, num_docs: int):
@@ -253,29 +252,13 @@ def batched_tree_candidates(
 def _apply_boost_gathered(final, a_s, pre):
     """A boost column read at the candidate anchors ``a_s`` (all below
     ``num_docs``) only (``tree_step.py:331``): ``pre`` from
-    :func:`.generic_step._precompute_boost`. Only hits (score > 0) with a
-    present value are boosted, ``skip_when_score`` exempts listed scores,
-    and a boosted score floors at 1e-30. The folded modes read one array
-    per boost. Products and sums are separate f32 operations, as in the
-    reference (no fused multiply-add)."""
+    :func:`.generic_step._precompute_boost`, gathered at ``a_s`` and applied
+    as :func:`.generic_step._apply_boost` applies it to a plane."""
     mode, fac, pres, skip, expr_add, folded = pre
+
+    def at(t):
+        return None if t is None else t[a_s]
+
     if folded is not None:
-        m, add = folded
-        boosted = final * m[a_s] if m is not None else final
-        if add is not None:
-            boosted = boosted + add[a_s]
-        return torch.where(final > 0, torch.clamp(boosted, min=_HIT_EPS), final)
-    if mode == "mul":
-        boosted = final * fac[a_s]
-    elif mode == "add":
-        boosted = final + fac[a_s]
-    elif mode == "replace":
-        boosted = fac[a_s]
-    else:
-        boosted = final
-    if expr_add is not None:
-        boosted = boosted + expr_add[a_s]
-    apply_mask = (final > 0) & pres[a_s]
-    for sv in skip:
-        apply_mask &= torch.abs(final - float(np.float32(sv))) >= _SKIP_TOL
-    return torch.where(apply_mask, torch.clamp(boosted, min=_HIT_EPS), final)
+        folded = (at(folded[0]), at(folded[1]))
+    return _apply_boost(final, (mode, at(fac), at(pres), skip, at(expr_add), folded))

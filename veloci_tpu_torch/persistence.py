@@ -436,6 +436,22 @@ class TorchIndex:
         self.gathered_rows: Counter = Counter()  # posting rows read per route
         self.bytes_indexed = 0  # the source data's size (Persistence.bytes_indexed)
         self._count_lock = threading.Lock()  # server threads share the counters
+        self.mesh_ctx = None  # set by attach_mesh: search and search_batch answer on the mesh
+
+    def attach_mesh(self, mesh) -> None:
+        """Attach a document-sharded mesh (``attach_mesh``,
+        ``persistence.py:752``; :func:`..parallel.sharding.build_mesh`):
+        the combined postings are cut into its ``d`` shards now, on their
+        devices, and :func:`..search.executor.search` and
+        :func:`..search.batch.search_batch` then answer on it
+        (:mod:`.parallel.mesh_executor`)."""
+        from .parallel.mesh_executor import MeshContext
+
+        self.mesh_ctx = MeshContext(self, mesh)
+
+    def detach_mesh(self) -> None:
+        """Answer on this index's own device again."""
+        self.mesh_ctx = None
 
     def count_path(self, route: str, n: int = 1) -> None:
         """Add ``n`` to ``path_counts[route]``."""

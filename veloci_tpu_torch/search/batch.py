@@ -650,24 +650,11 @@ def _fuzzy_specs(requests):
                 yield spec
 
 
-def search_batch(requests: List, index) -> List[SearchResult]:
-    """Answer a batch of requests on ``index``'s device. Results equal the
-    reference's ``search_batch``: ids, order (score desc, id desc),
-    ``num_hits``, facet lists and f32 scores (see :mod:`..ops.tree_step` for
-    the sum order of unions of three or more slots). Requests the tree
-    routes do not take go to the per-request executor, one at a time."""
-    from .executor import execute
-
-    start = time.time_ns()
-    plans = [_plan(req, index) for req in requests]
-    results: List = [None] * len(requests)
-    for qi, (req, plan) in enumerate(zip(requests, plans)):
-        if plan.kind == "executor":
-            results[qi] = execute(req, index, plan.reason)
-    fuzzy = prefetch_fuzzy_matches(
-        index, set(_fuzzy_specs([r for r, p in zip(requests, plans) if p.kind != "executor"]))
-    )
-
+def _group(index, requests, plans, fuzzy):
+    """The admitted requests of a batch resolved (:func:`_resolve`) and
+    grouped by route: ``plain`` ``{route: [_Query]}`` for plain trees and
+    ``generic`` ``{(route, boost keys, facet fields): [_Query]}`` for trees
+    with extras; each request's route is counted."""
     plain = {"single": [], "single_slot": [], "tree": [], "deep": []}
     generic: Dict[tuple, list] = {}  # (route, boost keys, facet fields) -> queries
     memo: dict = {}  # leaf key -> (global term ids, scores), for this batch
@@ -701,7 +688,33 @@ def search_batch(requests: List, index) -> List[SearchResult]:
                      ("batched_generic", sum(len(v) for v in generic.values()))):
         index.count_path(route, n)
         count_path(route, n)
+    return plain, generic
 
+
+def search_batch(requests: List, index) -> List[SearchResult]:
+    """Answer a batch of requests on ``index``'s device. Results equal the
+    reference's ``search_batch``: ids, order (score desc, id desc),
+    ``num_hits``, facet lists and f32 scores (see :mod:`..ops.tree_step` for
+    the sum order of unions of three or more slots). Requests the tree
+    routes do not take go to the per-request executor, one at a time.
+    With a mesh attached (``TorchIndex.attach_mesh``) the batch is
+    answered on it (:func:`..parallel.mesh_executor.search_batch_mesh`)."""
+    from .executor import execute
+
+    if index.mesh_ctx is not None:
+        from ..parallel.mesh_executor import search_batch_mesh
+
+        return search_batch_mesh(requests, index)
+    start = time.time_ns()
+    plans = [_plan(req, index) for req in requests]
+    results: List = [None] * len(requests)
+    for qi, (req, plan) in enumerate(zip(requests, plans)):
+        if plan.kind == "executor":
+            results[qi] = execute(req, index, plan.reason)
+    fuzzy = prefetch_fuzzy_matches(
+        index, set(_fuzzy_specs([r for r, p in zip(requests, plans) if p.kind != "executor"]))
+    )
+    plain, generic = _group(index, requests, plans, fuzzy)
     for route, queries in plain.items():
         _answer(index, route, queries, requests, results, start)
     for (route, boost_keys, facet_fields), queries in generic.items():

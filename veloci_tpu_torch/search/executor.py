@@ -88,7 +88,7 @@ from .field_search import (
 from .highlight import highlight_on_original_document
 from .read_document import read_data
 from .result import DocWithHit, Hit, SearchResult, SearchResultWithDoc
-from .stats import count_fallback
+from .stats import count_fallback, count_path
 from .why_found import get_why_found, merge_field_hits
 
 __all__ = ["execute", "explain_plan", "search", "search_to_result_with_doc", "suggest", "suggest_batch",
@@ -170,15 +170,16 @@ def _union(ctx, children):
     return total * df * df
 
 
-def _intersect(ctx, children):
+def _intersect(ctx, children, shortest=None):
     """intersect_hits_score (set_op.rs:368-448): where every child hits, the
     children summed in child order, the one with the fewest hits (the first
-    such) added last."""
+    such, or child ``shortest`` when the caller counted them) added last."""
     hit = [c[0] > 0 for c in children]
     mask = hit[0]
     for h in hit[1:]:
         mask = mask & h
-    shortest = int(np.argmin(torch.stack([h.sum() for h in hit]).cpu().numpy()))
+    if shortest is None:
+        shortest = int(np.argmin(torch.stack([h.sum() for h in hit]).cpu().numpy()))
     total = ctx.zeros()
     for i, c in enumerate(children):
         if i != shortest:
@@ -302,7 +303,15 @@ def search(request, index, dense_only: bool = False) -> SearchResult:
     A request the batched route admits is answered as
     ``search_batch([request], index)[0]``; the rest, and every request when
     ``dense_only`` is set, by the dense executor (:func:`execute`), which
-    answers ``explain``, on the request or a leaf, too."""
+    answers ``explain``, on the request or a leaf, too. With a mesh
+    attached (``TorchIndex.attach_mesh``) every request but those that ask
+    for ``explain`` or carry ``suggest`` is answered on the mesh
+    (:func:`..parallel.mesh_executor.mesh_search`, ``:699-707``)."""
+    if index.mesh_ctx is not None and not (_wants_explain(request) or request.suggest):
+        from ..parallel.mesh_executor import mesh_search
+
+        count_path("mesh_per_request")
+        return mesh_search(request, index, dense_only)
     plan = batch._plan(request, index)
     if plan.kind != "executor" and not dense_only:
         return batch.search_batch([request], index)[0]
@@ -361,6 +370,14 @@ def _route_label(request, index) -> str:
         route = f"deep tree ({why}); the sorted-run deep evaluator"
     else:
         route = f"flat tree ({why}); singles when one term matches, else the sorted-run tree evaluator"
+    mc = index.mesh_ctx
+    if mc is not None and not (_wants_explain(request) or request.suggest):  # as search() dispatches
+        tree = "a dense executor" if plan.kind == "executor" else "the dense tree evaluator"
+        route = (f"mesh ({mc.q} x {mc.d} [q, d] grid, {mc.d} document shards, top-k merged on the lead "
+                 f"device; {tree} on each shard's plane); admission: {why}")
+        kernels = [f"{k} on each shard's length window" if ": B" in k else k for k in kernels]
+        if "B7 dense resolve" not in kernels:
+            kernels.append("B7 dense resolve")
     device = "" if index.device.type == "cuda" else f" (plain versions on {index.device.type})"
     return f"{route}; kernels{device}: {', '.join(kernels) or 'none'}"
 

@@ -29,7 +29,7 @@ from ..indices import EMPTY, Direct
 from ..utils import get_steps_to_anchor
 from .read_document import text_for_id
 
-__all__ = ["FacetRelation", "facet_relation", "facet_counts", "format_counts", "get_facet"]
+__all__ = ["FacetRelation", "facet_relation", "facet_counts", "facet_list", "format_counts", "get_facet"]
 
 FACET_MAX_TARGETS = 512
 FACET_MAX_BYTES = 128 * 1024 * 1024
@@ -145,22 +145,21 @@ def format_counts(index, field: str, counts: np.ndarray, top) -> List[Tuple[str,
     return [(names[i], int(vals[i])) for i in order]
 
 
-def get_facet(index, facet_req, dense: torch.Tensor) -> List[Tuple[str, int]]:
-    """The facet list of the hit set ``dense > 0`` of a dense plane
-    (``get_facet``, ``:188``): the fast relation (the root field's
-    ``.parent_to_value_id``, or a 1:n field's ``.anchor_to_text_id``)
-    counted on the device over the hits, exactly and with no gate; other
-    fields through the join chain ``anchor -> ... -> value`` on the host,
-    from the hit ids."""
+def facet_list(index, facet_req, fast_counts, hit_ids) -> List[Tuple[str, int]]:
+    """The facet list of a hit set (``get_facet``, ``:188``): the fast
+    relation (the root field's ``.parent_to_value_id``, or a 1:n field's
+    ``.anchor_to_text_id``, uploaded with no gate) counted by
+    ``fast_counts(relation)`` (host int counts per value); other fields
+    through the join chain ``anchor -> ... -> value`` on the host, from the
+    hit ids ``hit_ids()`` returns (host, ascending)."""
     steps = get_steps_to_anchor(facet_req.field)
-    hits = torch.nonzero(dense > 0).squeeze(1)
     if len(steps) == 1 or index.has_index(steps[-1] + ANCHOR_TO_TEXT_ID):
         rel = facet_relation(index, facet_req.field, gated=False)
         if rel is None:
             return []
-        counts = facet_counts(rel, torch.zeros_like(hits), hits, 1)[0].cpu().numpy()
+        counts = fast_counts(rel)
     else:
-        ids = hits.cpu().numpy()
+        ids = hit_ids()
         for step in steps:
             store = index.key_value_stores.get(step + PARENT_TO_VALUE_ID)
             if store is None:
@@ -168,3 +167,11 @@ def get_facet(index, facet_req, dense: torch.Tensor) -> List[Tuple[str, int]]:
             ids = store.get_values_multi(ids).astype(np.int64)
         counts = np.bincount(ids) if len(ids) else np.zeros(0, np.int64)
     return format_counts(index, facet_req.field, counts, facet_req.top)
+
+
+def get_facet(index, facet_req, dense: torch.Tensor) -> List[Tuple[str, int]]:
+    """The facet list of the hit set ``dense > 0`` of a dense plane
+    (:func:`facet_list`), the fast relation counted on the device, exactly."""
+    hits = torch.nonzero(dense > 0).squeeze(1)
+    return facet_list(index, facet_req, lambda rel: facet_counts(rel, torch.zeros_like(hits), hits, 1)[0].cpu().numpy(),
+                      lambda: hits.cpu().numpy())

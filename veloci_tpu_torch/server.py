@@ -25,8 +25,8 @@ A database is warmed up after its load (``TorchIndex.warmup``) unless
 into one ``search_batch`` or ``suggest_batch`` (``VELOCI_FOLD=0`` turns this
 off, ``VELOCI_FOLD_MAX`` caps a fold); a handler waits at most
 ``_FOLD_WAIT_S`` (600 s) for its answer, and a fold loop that died is
-replaced. Every kernel launch stays on the
-calling thread's current stream.
+replaced. The listening socket's backlog is 1024 connections. Every kernel
+launch stays on the calling thread's current stream.
 """
 
 from __future__ import annotations
@@ -413,6 +413,12 @@ class VelociServer(ThreadingHTTPServer):
     daemon_threads = True
     allow_reuse_address = True
     device = "cuda"  # where the databases it loads go
+    # the listen backlog (socketserver's default is 5): connections the
+    # kernel completes while the accept loop is behind wait here. Past it
+    # the kernel drops new handshakes, and one it dropped after the client
+    # had sent its request is answered with a reset; the kernel caps the
+    # value at net.core.somaxconn
+    request_queue_size = 1024
 
 
 def make_server(host: str = "0.0.0.0", port: int = 3000, device: str = "cuda") -> VelociServer:
