@@ -30,8 +30,9 @@ Phases (any failure is an exception and a non-zero exit):
              integers). Median ms of each, CUDA events, beside the bound:
              the larger of the bytes moved over 3.35 TB/s and the integer
              operations over the card's INT32 rate.
-4. slice  -- a jmdict-shaped 200,000-document corpus (the generator of
-             bench.py's build_corpus, seed 1234) is built with the port's
+4. slice  -- a jmdict-shaped 200,000-document corpus (the package's copy
+             of bench.py's build_corpus, ``veloci_tpu_torch.synthetic``,
+             seed 1234) is built with the port's
              index build and native indexer, saved, read back and uploaded;
              ``TorchIndex.warmup`` runs once (its seconds and breakdown
              printed).
@@ -126,6 +127,22 @@ Phases (any failure is an exception and a non-zero exit):
              just before and read just after (the path's launches: B1, the
              fused select, B3 and B7 must launch); its concurrent search
              burst is profiled in phase 8.
+             Between the server and mesh paths, the ``api`` path: the
+             JAX package's own call on the port. The saved index read
+             back as a ``Persistence``, no device named in any call: the
+             ``query_string`` mix's first 256 strings one by one through
+             ``vt.search(req, pers)``, one ``vt.search_batch`` of them,
+             ``search_to_result_with_doc``, ``suggest`` and
+             ``explain_plan`` once each, the launch counters set to 0 just
+             before and read just after (B1, the fused select and B3 must
+             launch); the Persistence must upload exactly once, onto the
+             card (the default device), and every answer must be bit-equal
+             to the loaded TorchIndex's on the same requests. The first
+             call's seconds (the upload), and the lone p50 / p99 of the
+             other 255 beside the TorchIndex's on them. Then ``python -m
+             veloci_tpu_torch.cli test_large_search --num-docs 100000`` in
+             a child process on the card with ``VELOCI_LOG=info``: one
+             ``search took`` line a search, six in all.
              The eighth main path, ``mesh``: the index attached to a mesh
              of 8 document shards (25,000 documents each), every shard on
              the one card (``MeshContext``; and a [2, 4] [q, d] mesh for
@@ -263,8 +280,12 @@ BAND_CELL_OPS = 3
 BITPARALLEL_STEP_OPS = 16  # one bit-parallel step (Hyyro) per term char
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -276,33 +297,6 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- corpus
-def build_corpus(n_docs: int):
-    """bench.py's build_corpus: zipfian 40k vocabulary, 3-9-token titles."""
-    rng = np.random.default_rng(1234)
-    vocab_size = 40_000
-    vocab = np.array(
-        [f"w{i:x}{'abcdefgh'[i % 8] * (1 + i % 7)}" for i in range(vocab_size)]
-    )
-    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
-    probs = 1.0 / ranks
-    probs /= probs.sum()
-    lengths = rng.integers(3, 10, size=n_docs)
-    total_words = int(lengths.sum())
-    words = rng.choice(vocab, size=total_words, p=probs)
-    pops = rng.integers(1, 1000, size=n_docs)
-    out = []
-    pos = 0
-    for i in range(n_docs):
-        ln = lengths[i]
-        title = " ".join(words[pos : pos + ln])
-        pos += ln
-        out.append(
-            '{"title": "%s", "ent_seq": "%d", "cat": "c%d", "pop": %d}'
-            % (title, i, i % 16, pops[i])
-        )
-    return "\n".join(out), vocab, probs
-
-
 BENCH_CONFIG = """
 ["*GLOBAL*"]
 features = ["All"]
@@ -1766,6 +1760,114 @@ def server_phase(vt, index, index_dir, cpu_index, traffic, kernel_fns, postings,
     return launches, local, srv
 
 
+# ---------------------------------------------------------------- api path
+API_CLI_DOCS = 100_000  # test_large_search's corpus in the CLI child
+API_CLI_S = 600  # the child's import, CUDA start, build, upload and six searches
+API_DEVICE = "cuda"  # the default device the path must upload onto; a CPU rehearsal sets "cpu"
+API_CLI_ARGS = ()  # a CPU rehearsal adds ("--device", "cpu"); on the card the child names no device
+
+
+def api_phase(vt, index, index_dir, query_strings, suggest_spec, generic_spec, make, kernel_fns, postings,
+              report):
+    """The ``api`` path: the JAX package's own call on the port. The saved
+    index read back as a ``Persistence`` (no device named anywhere), its
+    upload counted: ``vt.search(req, pers)`` for each query string alone,
+    ``vt.search_batch`` of them all, ``search_to_result_with_doc``,
+    ``suggest`` and ``explain_plan`` once each, the launch counters set to
+    0 just before and read just after. Then the same calls on the loaded
+    ``TorchIndex``: every answer bit-equal. The first call's seconds (the
+    upload) and the lone p50 / p99 of the other requests beside the
+    TorchIndex's on the same requests. Then ``cli test_large_search`` in a
+    child process with ``VELOCI_LOG=info``: one ``search took`` line a
+    search. Returns the path's launches."""
+    import os
+
+    from veloci_tpu_torch.persistence import TorchIndex, default_device
+
+    t_phase = time.perf_counter()
+    pers = vt.Persistence.load(str(index_dir))
+    reqs = [make(q, index) for q in query_strings]  # the trees equal those made from pers; no upload here
+    sugg, plan_req = make(suggest_spec, index), make(generic_spec, index)
+    uploads = []
+    real_upload = TorchIndex.from_persistence.__func__
+
+    def counted(cls, p, device=None):
+        uploads.append(device)
+        return real_upload(cls, p, device)
+
+    TorchIndex.from_persistence = classmethod(counted)
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    postings.dense_resolve.direct_launches = 0
+    try:
+        lone, samples = [], []
+        for req in reqs:
+            t0 = time.perf_counter()
+            lone.append(vt.search(req, pers))
+            samples.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        batch = vt.search_batch(reqs, pers)
+        batch_s = time.perf_counter() - t0
+        docs = vt.search_to_result_with_doc(pers, lone[0], ["title", "cat"])
+        suggested = vt.suggest(pers, sugg)
+        plan = vt.explain_plan(plan_req, pers)
+        torch.cuda.synchronize()
+    finally:
+        TorchIndex.from_persistence = classmethod(real_upload)
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    launches["dense_resolve_direct"] = postings.dense_resolve.direct_launches
+    upload = pers.index()
+    if len(uploads) != 1 or uploads[0] is not None or upload.device.type != API_DEVICE \
+            or default_device().type != API_DEVICE:
+        raise AssertionError(f"the Persistence uploaded {len(uploads)} times ({uploads}), onto {upload.device}")
+    index_samples, index_lone = [], []
+    for req in reqs:
+        t0 = time.perf_counter()
+        index_lone.append(vt.search(req, index))
+        index_samples.append(time.perf_counter() - t0)
+    same = [result_key(a) == result_key(b) for a, b in zip(lone, index_lone)]
+    same += [result_key(a) == result_key(b) for a, b in zip(batch, vt.search_batch(reqs, index))]
+    same.append(json.dumps([d.to_dict() for d in docs.data]) == json.dumps(
+        [d.to_dict() for d in vt.search_to_result_with_doc(index, index_lone[0], ["title", "cat"]).data]))
+    same.append(suggested == vt.suggest(index, sugg))
+    same.append(plan_graph(plan) == plan_graph(vt.explain_plan(plan_req, index)))
+    if not all(same):
+        raise AssertionError(f"{same.count(False)} answers on the Persistence differ from the TorchIndex's")
+    for r, q in zip(lone, query_strings):
+        check_result(r, q)
+    if not any(r.data for r in lone) or not suggested:
+        raise AssertionError("the api path found nothing")
+    log(f"main path api launches: {launches}")
+    for k in ("levenshtein_sweep_banded_batch", "levenshtein_select_banded", "levenshtein_sweep_full_batch"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the main path api")
+    row = {"upload_s": samples[0], "persistence": lat_row(samples[1:]), "torch_index": lat_row(index_samples[1:]),
+           "search_batch_ms": batch_s * 1e3, "answers": len(same), "launches": launches}
+    log(f"api: vt.search(req, Persistence) x {len(reqs)}: the first call (the upload onto {upload.device}, once) "
+        f"{samples[0]:.3f} s; the other {len(reqs) - 1}: p50 {row['persistence']['p50_ms']:.3f} ms, "
+        f"p99 {row['persistence']['p99_ms']:.3f} ms; the TorchIndex on them: p50 "
+        f"{row['torch_index']['p50_ms']:.3f} ms, p99 {row['torch_index']['p99_ms']:.3f} ms; search_batch of "
+        f"{len(reqs)}: {row['search_batch_ms']:.3f} ms; {len(same)} answers bit-equal to the TorchIndex's")
+    # the CLI's test_large_search on the card, its searches logged
+    env = dict(os.environ, PYTHONPATH=str(ROOT), VELOCI_LOG="info")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "veloci_tpu_torch.cli", "test_large_search", "--num-docs",
+                           str(API_CLI_DOCS), *API_CLI_ARGS], cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=API_CLI_S)
+    cli_s = time.perf_counter() - t0
+    took = [line for line in proc.stderr.splitlines() if "search took" in line]
+    if proc.returncode != 0 or API_DEVICE not in proc.stdout or "6 searches" not in proc.stdout or len(took) != 6:
+        raise AssertionError(f"cli test_large_search (rc {proc.returncode}, {len(took)} 'search took' lines): "
+                             f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    for line in proc.stdout.strip().splitlines():
+        log(f"api cli: {line}")
+    log(f"api cli: {len(took)} 'search took' lines, one a search: {[line.split('] ')[-1] for line in took]}; "
+        f"{cli_s:.1f} s in all")
+    row.update(cli_stdout=proc.stdout, cli_search_took=took, cli_s=cli_s, phase_s=time.perf_counter() - t_phase)
+    report["slice"]["api"] = row
+    return launches
+
+
 # ---------------------------------------------------------------- mesh path
 MESH_SHARDS = 8  # document shards, all on the one card (the reference's multichip battery: 8 devices)
 MESH_GRID = (2, 4)  # the second batch's [q, d] mesh
@@ -1944,7 +2046,7 @@ def mesh_kernel_phase(postings, sweep, levenshtein, field_search, ctx, lone, rep
     ho0 = shards.shards[0].host_offsets
     best = None
     for r in lone["single_term"] + lone["term_half_filter"]:
-        ids, scores = field_search.get_term_ids_in_field(index, r.search_req.part, {})
+        ids, scores = field_search.term_ids_and_scores(index, r.search_req.part, {})
         if len(ids):
             g = ids.astype(np.int64) + base
             rows = int((ho0[g + 1] - ho0[g]).sum())
@@ -2054,7 +2156,10 @@ def main() -> None:
 
     # ---- corpus, index build, save, read + upload
     t0 = time.perf_counter()
-    data, vocab, probs = build_corpus(N_DOCS)
+    from veloci_tpu_torch.synthetic import build_corpus, zipf_probs
+
+    data, vocab = build_corpus(N_DOCS)
+    probs = zipf_probs(len(vocab))
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     pers = vt.Persistence.from_built(vt.create_indices_from_str(data, BENCH_CONFIG))
@@ -2376,6 +2481,10 @@ def main() -> None:
                 for k in [*kernel_fns, "dense_resolve_direct"]}
     log(f"main path launches, the server path's included: {launches}")
     del cpu_index
+
+    # ---- the api path: the reference's own call, on a Persistence
+    path_launches["api"] = api_phase(vt, index, index_dir, mixes["query_string"][0], feat_mixes["suggest"][-1],
+                                     mixes["generic"][0][0], make, kernel_fns, postings, report)
 
     # ---- the mesh path: 8 document shards on the card, against the unsharded index
     riders = {"regex": regex_specs[0], "boost_term": feat_mixes["boost_term"][0],

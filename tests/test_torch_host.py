@@ -7,6 +7,10 @@
 * The request model and the query generator: ``Request.from_dict`` and
   ``search_query`` build equal request trees.
 * The bundled stopword lists are equal.
+* The host functions the search does not call, which the port keeps for its
+  users (the parser's ``parse`` and ``walk_terms``, the tokenizers, the
+  field-path helpers, the store reads, the document store's native writer
+  and the native sorts), give equal outputs on seeded inputs.
 
 Tolerance: exact, everywhere. Inputs are made from a seed with numpy.
 
@@ -203,3 +207,120 @@ def test_stopword_lists(language):
     assert stopwords.get_stopwords(language) == ref_stopwords.get_stopwords(language)
     assert len(stopwords.get_stopwords(language)) > 10
     assert Path(stopwords.__file__).parent.parent.name == "veloci_tpu_torch"
+
+
+# ---------------------------------------------------------------- host functions
+QUERY_TEXTS = ["hello", "hello AND wor*", "title:(a b~1) OR c", '"quoted text" x~2', "a OR b AND c d",
+               "f:(g:(h))", "AND x", "x y z w"]
+
+
+@pytest.mark.parametrize("text", QUERY_TEXTS)
+def test_parse_and_walk_terms(text):
+    from veloci_tpu.query import parser as ref_parser
+    from veloci_tpu_torch.query import parser
+
+    got, want = parser.parse(text), ref_parser.parse(text)
+    assert repr(got) == repr(want)
+    got_terms, want_terms = [], []
+    got.walk_terms(got_terms.append)
+    want.walk_terms(want_terms.append)
+    assert got_terms == want_terms and got_terms
+
+
+def _texts(seed: int, n: int = 200):
+    rng = np.random.default_rng(seed)
+    pieces = VOCAB + [" ", "  ", "\n", ",", ".", "(", ")", "-", "…", "“", ":"]
+    return ["".join(rng.choice(pieces, size=int(rng.integers(0, 9)))) for _ in range(n)]
+
+
+def test_tokenizers():
+    from veloci_tpu import tokenizer as ref_tok
+    from veloci_tpu_torch import tokenizer
+
+    texts = _texts(5)
+    for seps in (None, " ,"):
+        group, ref_group = tokenizer.GroupTokenizer(seps), ref_tok.GroupTokenizer(seps)
+        for text in texts:
+            assert group.pieces(text) == ref_group.pieces(text) == list(group.iter(text))
+            assert group.token_list(text) == ref_group.token_list(text) == [t for t, _s in group.iter(text)]
+            assert group.has_tokens(text) == ref_group.has_tokens(text)
+    simple, ref_simple = tokenizer.SimpleTokenizer(), ref_tok.SimpleTokenizer()
+    for text in texts:
+        assert simple.tokens(text) == ref_simple.tokens(text)
+        assert simple.has_tokens(text) == ref_simple.has_tokens(text)
+
+
+@pytest.mark.parametrize("start, end", [
+    ("meanings.ger[]", "meanings.eng[]"), ("title", "meanings.ger[]"), ("a.b.c[]", "a.d[]"),
+    ("a.b.c[]", "a.b"), ("a", "a"), ("meanings.ger[].text", "meanings.eng[].text"),
+])
+def test_field_path_helpers(start, end):
+    from veloci_tpu import utils as ref_utils
+    from veloci_tpu_torch import utils
+
+    assert utils.steps_between_field_paths(start, end) == ref_utils.steps_between_field_paths(start, end)
+    for path in (start, end, start + ".textindex"):
+        assert utils.extract_field_name(path) == ref_utils.extract_field_name(path)
+
+
+def test_store_reads():
+    data, config = _corpus("long"), CONFIGS["long"]
+    ref = RefPersistence.from_built(ref_create(data, config))
+    pers = Persistence.from_built(create_indices_from_str(data, config))
+    dictionary, ref_dictionary = pers.get_dictionary("title"), ref.get_dictionary("title")
+    for prefix in ("h", "He", "hell", "x", "日", "", "zzzz", "W"):
+        for ignore_case in (True, False):
+            assert dictionary.prefix_range(prefix, ignore_case) == ref_dictionary.prefix_range(prefix, ignore_case)
+    path = "title.textindex.to_anchor_id_score"
+    store, ref_store = pers.get_token_to_anchor(path), ref.get_token_to_anchor(path)
+    for token in (-1, 0, 1, store.num_keys - 1, store.num_keys):
+        for got, want in zip(store.get_postings(token), ref_store.get_postings(token)):
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+    phrase_path = next(p for p in pers.phrase_indices)
+    phrases, ref_phrases = pers.get_phrase_pair_to_anchor(phrase_path), ref.get_phrase_pair_to_anchor(phrase_path)
+    keys = [(int(k) >> 32, int(k) & 0xFFFFFFFF) for k in phrases.keys[:20]] + [(0, 0), (1 << 20, 3)]
+    for pair in keys:
+        got, want = phrases.get_values(pair), ref_phrases.get_values(pair)
+        assert (got is None and want is None) or np.array_equal(got, want)
+    assert pers.heap_size_bytes() == ref.heap_size_bytes()
+    for name in ("has_index", "tokenize_enabled", "is_anchor_identity_column"):
+        for arg in (path, "title", "title.textindex", "cat.parent_to_value_id", "missing"):
+            assert getattr(pers, name)(arg) == getattr(ref, name)(arg), (name, arg)
+    assert pers.num_text_ids("title") == ref.num_text_ids("title")
+
+
+def test_document_store_writers(reference_library):
+    from veloci_tpu import doc_store as ref_doc_store
+    from veloci_tpu_torch import doc_store
+
+    data = _corpus("long")
+    lines = [line for line in data.split("\n") if line.strip()]
+    writer = doc_store.DocStoreWriter()
+    for line in lines:
+        writer.add_doc(line)
+    ref_writer = ref_doc_store.DocStoreWriter()
+    for line in lines:
+        ref_writer.add_doc(line)
+    blob = writer.finish()
+    assert blob == ref_writer.finish()
+    assert doc_store.build_doc_store_native(data) == ref_doc_store.build_doc_store_native(data) == (
+        blob, len(lines), writer.bytes_indexed)
+    assert list(doc_store.DocLoader(blob).iter_docs()) == list(ref_doc_store.DocLoader(blob).iter_docs()) == lines
+    body = port_native.doc_store_body(data.encode("utf-8"), doc_store.FLUSH_THRESHOLD)
+    ref_body = ref_native.doc_store_body(data.encode("utf-8"), doc_store.FLUSH_THRESHOLD)
+    assert body[0] == ref_body[0] and np.array_equal(body[1], ref_body[1]) and body[2:] == ref_body[2:]
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 70_000])
+def test_native_sorts(n, reference_library):
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 1 << 40, size=n, dtype=np.uint64) >> rng.integers(0, 30, size=n, dtype=np.uint64)
+    vals = rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+    got, want = keys.copy(), keys.copy()
+    assert port_native.sort_u64(got) and ref_native.sort_u64(want)
+    assert np.array_equal(got, want) and np.array_equal(got, np.sort(keys))
+    for name in ("sort_kv_u64_u32", "lexsort_kv_u64_u32"):
+        got_k, got_v, want_k, want_v = keys.copy(), vals.copy(), keys.copy(), vals.copy()
+        assert getattr(port_native, name)(got_k, got_v) and getattr(ref_native, name)(want_k, want_v)
+        assert np.array_equal(got_k, want_k) and np.array_equal(got_v, want_v), name
+    assert not port_native.sort_u64(keys.astype(np.int64))

@@ -3,9 +3,11 @@ package ``veloci_tpu/``, runs from a tree that holds only the port, the
 native indexer's source and ``chip_smoke.py`` (its search, a regex request,
 a document read, warmup, a boost_term / text_locality / why_found request,
 suggest, an explained request, ``explain_plan``, its server, stats and
-CLI, imported and answering over HTTP, and ``parallel/``: an attached
+CLI, imported and answering over HTTP, ``parallel/``: an attached
 8-shard CPU mesh answering as the unsharded index does, and the host
-fan-out over separate indices, included), and refuses a CUDA device
+fan-out over separate indices, the reference's own call
+``search(request, Persistence.create_from_str(...))`` on the CPU default,
+``trace.enable_log`` and the CLI's test subcommands, included), and refuses a CUDA device
 it does not have. ``chip_smoke.py`` refuses to run without a card, in the
 repository, in that tree and alone."""
 
@@ -119,6 +121,22 @@ assert [(r.num_hits, r.data) for r in on_mesh] == [(r.num_hits, r.data) for r in
 assert index.path_counts["mesh_batch"] and index.path_counts["mesh_executor"], index.path_counts
 fanned = build_sharded(docs.split("\n"), "{}", shard_size=150, device="cpu")
 assert len(fanned.shards) == 3 and fanned.search(Request.from_dict({"search_req": leaf("hello")})).data
+from veloci_tpu_torch import default_device, set_default_device, trace
+assert str(default_device()) == "cuda"
+set_default_device("cpu")
+trace.enable_log("info")
+own = Persistence.create_from_str(docs, "{}")  # the reference's own call
+assert search(Request.from_dict({"search_req": leaf("hello")}), own).data == \
+    search(Request.from_dict({"search_req": leaf("hello")}), index).data
+assert own.index() is own.index() and own.index().device.type == "cpu"
+with tempfile.TemporaryDirectory() as d:
+    Path(d, "book.txt").write_text("hello world\nhelp\n\nthe word\n\n\nhells x")
+    veloci_tpu_torch.cli.main(["create_test_index", "--corpus", "gutenberg", "--data", str(Path(d, "book.txt")),
+                               "--target", str(Path(d, "g"))])
+    veloci_tpu_torch.cli.main(["create_test_index", "--num-docs", "300", "--target", str(Path(d, "j"))])
+    assert Persistence.load(str(Path(d, "g"))).num_docs == 3 and Persistence.load(str(Path(d, "j"))).num_docs == 300
+veloci_tpu_torch.cli.main(["test_large_search", "--num-docs", "500", "--device", "cpu"])
+veloci_tpu_torch.cli.main(["test_very_large_index", "--pairs", "200000", "--chunk-items", "50000"])
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (m == "jax" or m.startswith("jax."))]
 assert not loaded, loaded
 assert sys.argv[1] != "block" or sys.modules["jax"] is None and sys.modules["veloci_tpu"] is None

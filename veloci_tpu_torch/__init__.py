@@ -33,6 +33,7 @@ renders a request's plan. ``server.py`` serves an index over HTTP and
 ``cli.py`` builds and serves one
 (``python -m veloci_tpu_torch.cli serve <db> --device cuda``).
 
+    result = search(Request.from_dict(d), Persistence.create_from_str(ndjson, config))  # the reference's call
     index = load_index("path/to/index")  # on the card; load_index(path, "cpu") on the CPU
     results = search_batch([Request.from_dict(d) for d in dicts], index)
     result = search(Request.from_dict(d), index)
@@ -45,29 +46,98 @@ renders a request's plan. ``server.py`` serves an index over HTTP and
 
 An index is built with ``Persistence.create_from_str(ndjson, config)`` (or
 ``Persistence.from_built(create_indices_from_str(ndjson, config))``) and
-written with ``Persistence.save(directory)``.
+written with ``Persistence.save(directory)``. Every entry point takes that
+``Persistence`` as the reference's do, and answers on its upload, made once
+on the default device: the card, unless :func:`set_default_device` names
+another (``set_default_device("cpu")`` for the CPU). ``trace.enable_log``
+with ``VELOCI_LOG=info`` logs each ``search``'s time.
+
+The package's names are loaded at first use (PEP 562), so that a command
+that needs no torch, such as the CLI's ``test_very_large_index``, does not
+import it.
 """
 
-from .create import add_token_values_to_tokens, create_indices_from_str
-from .persistence import Persistence, TorchIndex, load_index
-from .query.generator import SearchQueryGeneratorParameters, search_query, suggest_query
-from .query.request import Request
-from .search.batch import search_batch
-from .search.executor import explain_plan, search, search_to_result_with_doc, suggest, suggest_batch
-from .search.field_search import highlight_field
-from .search.result import DocWithHit, Hit, SearchResult, SearchResultWithDoc
+import importlib
+import sys
+import types
+
+_FROM = {  # each public name -> the module of this package that defines it
+    "add_token_values_to_tokens": ".create",
+    "create_indices_from_str": ".create",
+    "VelociError": ".error",
+    "to_line_delimited": ".json_flatten",
+    "Persistence": ".persistence",
+    "TorchIndex": ".persistence",
+    "default_device": ".persistence",
+    "load_index": ".persistence",
+    "set_default_device": ".persistence",
+    "SearchQueryGeneratorParameters": ".query.generator",
+    "search_query": ".query.generator",
+    "suggest_query": ".query.generator",
+    "FacetRequest": ".query.request",
+    "Request": ".query.request",
+    "RequestBoostPart": ".query.request",
+    "RequestPhraseBoost": ".query.request",
+    "RequestSearchPart": ".query.request",
+    "SearchRequest": ".query.request",
+    "search_batch": ".search.batch",
+    "explain_plan": ".search.executor",
+    "search": ".search.executor",
+    "search_to_result_with_doc": ".search.executor",
+    "suggest": ".search.executor",
+    "suggest_batch": ".search.executor",
+    "highlight_field": ".search.field_search",
+    "DocWithHit": ".search.result",
+    "Hit": ".search.result",
+    "SearchResult": ".search.result",
+    "SearchResultWithDoc": ".search.result",
+}
+
+
+def __getattr__(name):
+    module = _FROM.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(module, __name__), name)
+    globals()[name] = value
+    return value
+
+
+class _Package(types.ModuleType):
+    """This package's module type. Importing the ``search`` subpackage sets
+    the package's ``search`` to it; the name stays the function, as in the
+    reference, whose ``__init__`` imports the function after the
+    subpackage."""
+
+    def __setattr__(self, name, value):
+        if name == "search" and isinstance(value, types.ModuleType):
+            value = value.search
+        super().__setattr__(name, value)
+
+
+sys.modules[__name__].__class__ = _Package
+
+__version__ = "0.1.0"
 
 __all__ = [
     "DocWithHit",
+    "FacetRequest",
     "Hit",
     "Persistence",
     "Request",
+    "RequestBoostPart",
+    "RequestPhraseBoost",
+    "RequestSearchPart",
     "SearchQueryGeneratorParameters",
+    "SearchRequest",
     "SearchResult",
     "SearchResultWithDoc",
     "TorchIndex",
+    "VelociError",
+    "__version__",
     "add_token_values_to_tokens",
     "create_indices_from_str",
+    "default_device",
     "explain_plan",
     "highlight_field",
     "load_index",
@@ -75,7 +145,9 @@ __all__ = [
     "search_batch",
     "search_query",
     "search_to_result_with_doc",
+    "set_default_device",
     "suggest",
     "suggest_batch",
     "suggest_query",
+    "to_line_delimited",
 ]

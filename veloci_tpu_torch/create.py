@@ -771,8 +771,9 @@ def add_token_values_to_tokens(persistence, data_str: str, config_str: str) -> N
 
     Looks each text up in the field dictionary (exact, case-sensitive) and
     writes ``token_id -> f32`` under ``<path>.textindex.token_values
-    .boost_valid_to_value`` of the host :class:`Persistence`; upload the
-    index afterwards."""
+    .boost_valid_to_value`` of the host :class:`Persistence`, and drops its
+    upload (``Persistence.invalidate_device_cache``): the next search
+    uploads the index with the column."""
     data = json.loads(data_str)
     cfg = json.loads(config_str)
     path = cfg["path"]
@@ -815,3 +816,4 @@ def add_token_values_to_tokens(persistence, data_str: str, config_str: str) -> N
             "is_empty": not keys,
         }
     )
+    persistence.invalidate_device_cache()

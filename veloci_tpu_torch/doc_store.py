@@ -18,14 +18,14 @@ import threading
 import zlib
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
 
 from .error import VelociError
 from .native import lz_available, lz_compress, lz_decompress
 
-__all__ = ["DocLoader", "DocStoreWriter", "FLUSH_THRESHOLD"]
+__all__ = ["DocLoader", "DocStoreWriter", "FLUSH_THRESHOLD", "build_doc_store_native"]
 
 FLUSH_THRESHOLD = 16_384
 _MAGIC = b"VTD2"
@@ -52,6 +52,10 @@ class DocStoreWriter:
         self._first_id_in_block = 0
         # pending raw blocks: (first_doc_id, num_offsets, payload bytes)
         self._raw_blocks: List[Tuple[int, int, bytes]] = []
+
+    def add_doc(self, doc: str | bytes) -> None:
+        """Append one document."""
+        self.add_docs((doc,))
 
     def add_docs(self, docs) -> None:
         """Bulk append — one Python call per ~block instead of per doc."""
@@ -169,3 +173,27 @@ class DocLoader:
         offsets, raw = self._load_block(block)
         pos = doc_id - int(self._first_ids[block])
         return raw[int(offsets[pos]) : int(offsets[pos + 1])].decode("utf-8")
+
+    def iter_docs(self) -> Iterator[str]:
+        """Every document, in id order."""
+        for i in range(self.num_docs):
+            yield self.get_doc(i)
+
+
+def build_doc_store_native(data_str: str):
+    """The whole document store of an ndjson string in one native pass
+    (:func:`.native.doc_store_body`: line split, blocks and LZ in C++),
+    byte-equal to :class:`DocStoreWriter`'s with the LZ codec:
+    ``(blob, num_docs, bytes_indexed)``, or None without the native
+    library."""
+    if not lz_available():
+        return None
+    from .native import doc_store_body
+
+    r = doc_store_body(data_str.encode("utf-8"), FLUSH_THRESHOLD)
+    if r is None:
+        return None
+    body, rows, num_docs, bytes_indexed = r
+    tail = np.ascontiguousarray(rows, dtype=np.uint64).tobytes()
+    blob = body + tail + len(tail).to_bytes(8, "little") + num_docs.to_bytes(8, "little") + _MAGIC
+    return blob, num_docs, bytes_indexed

@@ -132,6 +132,13 @@ class AnchorScoreCsr:
     def num_keys(self) -> int:
         return len(self.offsets) - 1
 
+    def get_postings(self, token_id: int) -> Tuple[np.ndarray, np.ndarray]:
+        """One term's (anchors, u16 scores), empty for an id out of range."""
+        if token_id >= self.num_keys or token_id < 0:
+            return np.empty(0, dtype=np.uint32), np.empty(0, dtype=np.uint16)
+        s, e = self.offsets[token_id], self.offsets[token_id + 1]
+        return self.anchors[s:e], self.scores[s:e]
+
     def memory_bytes(self) -> int:
         return self.offsets.nbytes + self.anchors.nbytes + self.scores.nbytes
 
@@ -143,6 +150,15 @@ class PhraseCsr:
     keys: np.ndarray  # uint64 [num_pairs], sorted, key = a << 32 | b
     offsets: np.ndarray  # uint64 [num_pairs + 1]
     values: np.ndarray  # uint32 [nnz]
+
+    def get_values(self, pair: Tuple[int, int]) -> Optional[np.ndarray]:
+        """The anchors of one (term a, term b) pair, or None for a pair
+        not stored."""
+        key = (np.uint64(pair[0]) << np.uint64(32)) | np.uint64(pair[1])
+        i = np.searchsorted(self.keys, key)
+        if i >= len(self.keys) or self.keys[i] != key:
+            return None
+        return self.values[self.offsets[i] : self.offsets[i + 1]]
 
     def get_values_for_pairs(self, a_ids: np.ndarray, b_ids: np.ndarray) -> np.ndarray:
         """All anchors for the cross product of term id lists (vectorised)."""
@@ -229,6 +245,10 @@ class TermDictionary:
             out.append(self.lower_perm[i])
             i += 1
         return out
+
+    def prefix_range(self, prefix: str, ignore_case: bool = True) -> List[int]:
+        """Term ids whose term starts with ``prefix``."""
+        return list(self.prefix_range_ids(prefix, ignore_case=ignore_case))
 
     def prefix_range_ids(self, prefix: str, ignore_case: bool = True) -> np.ndarray:
         """Term ids whose term starts with ``prefix``, sorted ``int64``.

@@ -1,15 +1,20 @@
 """ctypes bindings for the native indexing core (``native/indexer.cpp``).
 
 The port's copy of the indexer half of ``veloci_tpu/native.py``. It builds
-the repository's C++ source with g++ into ``build/native/`` at the
-repository root (gitignored) on first use and exposes :func:`index_ndjson`,
-which parses, flattens, tokenizes and counts an ndjson corpus in C++ and
-returns numpy arrays per field path, plus the sort / pack helpers and the
-LZ block codec the builder and the document store use. The pure-Python
-pipeline in :mod:`veloci_tpu_torch.create` is the fallback where g++ is
-missing.
+``native/indexer.cpp`` and the port's ``csrc/doc_store_body.cpp`` (one
+library) with g++ into ``build/native/`` at the repository root
+(gitignored) on first use and exposes :func:`index_ndjson`, which parses,
+flattens, tokenizes and counts an ndjson corpus in C++ and returns numpy
+arrays per field path, plus the pack helpers and the LZ block codec the
+index build and the document store use. The pure-Python pipeline in
+:mod:`veloci_tpu_torch.create` is the fallback where g++ is missing.
+:func:`sort_u64`, :func:`sort_kv_u64_u32`, :func:`lexsort_kv_u64_u32` and
+:func:`doc_store_body` are the reference's API counterparts: no code of
+the port calls them. The reference's query baselines
+(``native/baseline.cpp``, ``veloci_tpu/native.py:588-815``) are not built
+here.
 
-The library is keyed by a hash of the source, the flags and the host CPU's
+The library is keyed by a hash of the sources, the flags and the host CPU's
 feature flags: it is built with ``-march=native``, so a build directory
 copied to another machine is rebuilt there, not loaded.
 """
@@ -35,13 +40,17 @@ __all__ = [
     "lz_available",
     "lz_compress",
     "lz_decompress",
+    "sort_u64",
+    "sort_kv_u64_u32",
+    "lexsort_kv_u64_u32",
+    "doc_store_body",
 ]
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_TRIED = False
 
 _ROOT = Path(__file__).resolve().parent.parent
-_SOURCE = _ROOT / "native" / "indexer.cpp"
+_SOURCES = (_ROOT / "native" / "indexer.cpp", _ROOT / "veloci_tpu_torch" / "csrc" / "doc_store_body.cpp")
 _CACHE = _ROOT / "build" / "native"
 _CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
@@ -56,8 +65,8 @@ def _tune_malloc() -> None:
     would do the same on every batch. Raising M_MMAP_THRESHOLD and
     M_TRIM_THRESHOLD keeps freed blocks pooled for reuse, trading retained
     RSS for not re-faulting the same pages. Done once, when this module is
-    imported (with the package), as the reference package does, whether or
-    not the native library builds."""
+    first imported (by the index build, the document store or the
+    persistence layer), whether or not the native library builds."""
     try:
         libc = ctypes.CDLL(None, use_errno=True)
         M_TRIM_THRESHOLD, M_MMAP_THRESHOLD = -1, -3
@@ -85,7 +94,8 @@ def _host_cpu() -> bytes:
 def _so_path() -> Path:
     h = hashlib.sha256()
     h.update(" ".join(_CXX_FLAGS).encode())
-    h.update(_SOURCE.read_bytes())
+    for src in _SOURCES:
+        h.update(src.read_bytes())
     h.update(_host_cpu())
     return _CACHE / f"libveloci_native-{h.hexdigest()[:16]}.so"
 
@@ -109,7 +119,7 @@ def _build_lib(so_path: Path) -> bool:
         so_path.parent.mkdir(parents=True, exist_ok=True)
         tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.tmp")
         subprocess.run(
-            ["g++", *_CXX_FLAGS, "-o", str(tmp), str(_SOURCE)],
+            ["g++", *_CXX_FLAGS, "-o", str(tmp), *map(str, _SOURCES)],
             check=True,
             capture_output=True,
             timeout=_BUILD_TIMEOUT_S,
@@ -125,7 +135,7 @@ def _load() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
-    if not _SOURCE.exists():
+    if not all(src.exists() for src in _SOURCES):
         return None
     so_path = _so_path()
     if not so_path.exists() and not _build_lib(so_path):
@@ -206,6 +216,16 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.vl_pack_csr.argtypes = [p64, p32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, p64]
     lib.vl_pack_phrase.restype = ctypes.c_int64
     lib.vl_pack_phrase.argtypes = [p64, p32, ctypes.c_int64, p64, ctypes.POINTER(ctypes.c_int64)]
+    lib.vl_radix_sort_u64.restype = None
+    lib.vl_radix_sort_u64.argtypes = [p64, ctypes.c_int64]
+    for name in ("vl_radix_sort_u64_kv32", "vl_lexsort_u64_u32"):
+        getattr(lib, name).restype = None
+        getattr(lib, name).argtypes = [p64, p32, ctypes.c_int64]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.vl_doc_store_body.restype = ctypes.c_int64
+    lib.vl_doc_store_body.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+                                       ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, p64, ctypes.c_int64,
+                                       i64p, i64p, i64p]
     _LIB = lib
     return _LIB
 
@@ -475,3 +495,67 @@ class _LazyTerms:
 
     def __iter__(self):
         return iter(self._force())
+
+
+# ---------------------------------------------------------------- radix sort
+def _kv_ok(keys, vals) -> bool:
+    return (keys.dtype == np.uint64 and vals.dtype == np.uint32 and keys.flags.c_contiguous
+            and vals.flags.c_contiguous and len(keys) == len(vals))
+
+
+def sort_u64(arr) -> bool:
+    """In-place stable LSD radix sort of a contiguous uint64 array; False
+    (nothing done) without the native library or for another array."""
+    lib = _load()
+    if lib is None or not (arr.dtype == np.uint64 and arr.flags.c_contiguous):
+        return False
+    lib.vl_radix_sort_u64(arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), len(arr))
+    return True
+
+
+def sort_kv_u64_u32(keys, vals) -> bool:
+    """In-place stable sort of (keys u64, payload u32) by key; False as
+    :func:`sort_u64`."""
+    lib = _load()
+    if lib is None or not _kv_ok(keys, vals):
+        return False
+    lib.vl_radix_sort_u64_kv32(keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                               vals.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), len(keys))
+    return True
+
+
+def lexsort_kv_u64_u32(keys, vals) -> bool:
+    """In-place lexicographic (key, val) sort, ``np.lexsort((vals, keys))``
+    applied to both arrays; False as :func:`sort_u64`."""
+    lib = _load()
+    if lib is None or not _kv_ok(keys, vals):
+        return False
+    lib.vl_lexsort_u64_u32(keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                           vals.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), len(keys))
+    return True
+
+
+def doc_store_body(data: bytes, flush_threshold: int):
+    """The document store's body from ndjson in one native pass
+    (``vl_doc_store_body``, ``csrc/doc_store_body.cpp``): ``(body bytes,
+    index rows uint64 [B, 3], num_docs, bytes_indexed)``, or None without
+    the native library."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(data)
+    nlines = data.count(b"\n") + 1
+    out_cap = n + n // 64 + 16 * nlines + (1 << 16)
+    max_blocks = nlines + 2
+    out = np.zeros(out_cap, dtype=np.uint8)
+    idx = np.zeros(max_blocks * 3, dtype=np.uint64)
+    n_blocks, num_docs, bytes_indexed = ctypes.c_int64(0), ctypes.c_int64(0), ctypes.c_int64(0)
+    size = lib.vl_doc_store_body(
+        data, n, flush_threshold, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out_cap,
+        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), max_blocks, ctypes.byref(n_blocks),
+        ctypes.byref(num_docs), ctypes.byref(bytes_indexed),
+    )
+    if size < 0:
+        return None
+    return out[:size].tobytes(), idx[: n_blocks.value * 3].reshape(-1, 3), int(num_docs.value), int(
+        bytes_indexed.value)

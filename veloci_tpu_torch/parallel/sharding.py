@@ -49,7 +49,7 @@ import torch
 
 from ..ops.postings import Csr, csr_resolve, dense_max_row_score
 from ..ops.topk import rank_key, topk_dense
-from ..persistence import FieldSweep, _device
+from ..persistence import FieldSweep, _device, default_device
 from ..search.facet import FacetRelation, facet_counts
 
 __all__ = [
@@ -92,11 +92,12 @@ def _normal(device) -> torch.device:
 
 def build_mesh(n_docs_shards: int, n_query_shards: int = 1, devices=None) -> Mesh:
     """A ``[n_query_shards, n_docs_shards]`` mesh over ``devices`` (taken in
-    row order; one device may repeat). By default every cell is the card;
-    with no GPU that raises, as an index loaded onto the card does."""
+    row order; one device may repeat). By default every cell is the default
+    device (``persistence.default_device``, the card); with no GPU a card
+    raises, as an index loaded onto the card does."""
     n = n_docs_shards * n_query_shards
     if devices is None:
-        devices = ["cuda"] * n
+        devices = [default_device()] * n
     if len(devices) < n:
         raise ValueError(f"need {n} devices, have {len(devices)}")
     devs = [_normal(d) for d in devices[:n]]

@@ -39,10 +39,10 @@ __all__ = ["build_sharded", "ShardedPersistence"]
 
 
 def build_sharded(lines: Iterable[str], indices: str = "{}", *, shard_size: int = 1_000_000,
-                  target_dir: Optional[str] = None, device="cuda") -> "ShardedPersistence":
+                  target_dir: Optional[str] = None, device=None) -> "ShardedPersistence":
     """Build one index per ``shard_size`` documents of an ndjson line
-    stream, each on ``device``; with ``target_dir`` each is saved to
-    ``shard_NNNN`` there and read back."""
+    stream, each on ``device`` (the default device when None); with
+    ``target_dir`` each is saved to ``shard_NNNN`` there and read back."""
     shards: List[TorchIndex] = []
     buf: List[str] = []
 
@@ -81,7 +81,7 @@ class ShardedPersistence:
         self.bytes_indexed = sum(s.num_docs and s.bytes_indexed for s in shards)
 
     @classmethod
-    def load(cls, directory: str, device="cuda") -> "ShardedPersistence":
+    def load(cls, directory: str, device=None) -> "ShardedPersistence":
         """The ``shard_*`` indices of ``directory``, in name order."""
         shard_dirs = sorted(p for p in Path(directory).iterdir() if p.name.startswith("shard_"))
         return cls([load_index(str(p), device) for p in shard_dirs])

@@ -11,6 +11,14 @@ matrices, the combined posting CSR and, on first use, the boost columns on
 one torch device, beside the host relation stores that filters, phrase
 boosts and facets read.
 
+A Persistence answers the reference's own call, ``search(request,
+persistence)``: every entry point turns it into its upload with
+:func:`as_index`, on the default device (:func:`set_default_device`, the
+card unless a caller asks for the CPU). The reference's HBM layout
+(``DeviceField``, ``device_field`` / ``device_combined`` /
+``device_boost`` on the Persistence, the capacity ladders) is not copied
+by name: the upload is a :class:`TorchIndex`.
+
 Lengths are runtime values: the device arrays carry no tile padding and no
 slice-window tail padding, because the port's kernels and reads bound
 themselves.
@@ -36,8 +44,8 @@ from .indices import AnchorScoreCsr, Csr, Direct, PhraseCsr, TermDictionary
 from .ops.postings import dense_max_row_score
 
 __all__ = [
-    "FieldSweep", "LongTerms", "Persistence", "RegexRows", "TorchIndex", "long_term_rows",
-    "load_index", "regex_flags",
+    "FieldSweep", "LongTerms", "Persistence", "RegexRows", "TorchIndex", "as_index", "default_device",
+    "long_term_rows", "load_index", "regex_flags", "set_default_device",
 ]
 
 _MANIFEST = "metaData.json"
@@ -56,9 +64,88 @@ def _dec(name: str) -> str:
     return urllib.parse.unquote(name)
 
 
-class Persistence:
+def _strip_textindex(field: str) -> str:
+    return field[: -len(TEXTINDEX)] if field.endswith(TEXTINDEX) else field
+
+
+class _HostStores:
+    """The reads of an index's host stores that a :class:`Persistence` and
+    a :class:`TorchIndex` serve alike (``persistence.py:601-668``): column
+    metadata, term dictionaries, key-value relations, phrase pairs, boost
+    columns and the document store."""
+
+    columns: Dict[str, dict]
+    dictionaries: Dict[str, TermDictionary]
+    key_value_stores: Dict[str, Csr | Direct]
+    phrase_indices: Dict[str, PhraseCsr]
+    boost_stores: Dict[str, Tuple[np.ndarray, np.ndarray]]
+    doc_store_bytes: Optional[bytes]
+    _doc_loader: Optional[DocLoader]
+
+    def get_all_fields(self) -> List[str]:
+        """The index's columns (``search_query`` expands terms over them)."""
+        return list(self.columns.keys())
+
+    def get_dictionary(self, field: str) -> TermDictionary:
+        dictionary = self.dictionaries.get(_strip_textindex(field))
+        if dictionary is None:
+            raise FstNotFoundError(field)
+        return dictionary
+
+    def has_index(self, path: str) -> bool:
+        """Whether ``path`` names a store (each class answers
+        ``has_token_to_anchor`` for the postings)."""
+        return (
+            path in self.key_value_stores
+            or path in self.phrase_indices
+            or path in self.boost_stores
+            or self.has_token_to_anchor(path)
+        )
+
+    def tokenize_enabled(self, field: str) -> bool:
+        col = self.columns.get(_strip_textindex(field))
+        return bool(col and col["textindex_metadata"]["options"].get("tokenize", False))
+
+    def is_anchor_identity_column(self, field: str) -> bool:
+        col = self.columns.get(_strip_textindex(field))
+        return bool(col and col.get("is_anchor_identity_column"))
+
+    def get_valueid_to_parent(self, path: str):
+        """A key-value store by its path (``GET /<db>/inspect``)."""
+        store = self.key_value_stores.get(path)
+        if store is None:
+            raise VelociError(f"index not found: {path!r}")
+        return store
+
+    def get_boost(self, path: str) -> Tuple[np.ndarray, np.ndarray]:
+        store = self.boost_stores.get(path)
+        if store is None:
+            raise VelociError(f"boost index not found: {path!r}")
+        return store
+
+    def num_text_ids(self, field: str) -> int:
+        return int(self.columns[_strip_textindex(field)]["textindex_metadata"]["num_text_ids"])
+
+    @property
+    def doc_loader(self) -> DocLoader:
+        """The document store's reader, made at first use
+        (``persistence.py:647``)."""
+        if self._doc_loader is None:
+            if self.doc_store_bytes is None:
+                raise VelociError("no document store")
+            self._doc_loader = DocLoader(self.doc_store_bytes)
+        return self._doc_loader
+
+
+class Persistence(_HostStores):
     """An index on the host: metadata, term dictionaries and the packed
-    columns, as a build leaves them or as an index directory holds them."""
+    columns, as a build leaves them or as an index directory holds them.
+
+    It answers searches too: every entry point that takes an index takes a
+    Persistence and searches its upload (:meth:`index`), made on first use
+    on the default device (:func:`set_default_device`) and kept until a
+    write to the Persistence (:func:`.create.add_token_values_to_tokens`)
+    drops it (:meth:`invalidate_device_cache`)."""
 
     def __init__(self) -> None:
         self.num_docs: int = 0
@@ -71,6 +158,9 @@ class Persistence:
         self.boost_stores: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
         self.doc_store_bytes: Optional[bytes] = None
         self.path: Optional[str] = None
+        self._doc_loader: Optional[DocLoader] = None
+        self._index: Optional["TorchIndex"] = None  # the upload, made by index()
+        self._index_lock = threading.Lock()  # server threads share one upload
 
     @classmethod
     def create_from_str(cls, data_str: str, indices: str = "{}", *, line_delimited: bool = True) -> "Persistence":
@@ -217,8 +307,57 @@ class Persistence:
             p.doc_store_bytes = docs.read_bytes()
         return p
 
-    def get_all_fields(self) -> List[str]:
-        return list(self.columns.keys())
+    def index(self, device=None) -> "TorchIndex":
+        """This index uploaded with :meth:`TorchIndex.from_persistence`, on
+        ``device`` or the default device: made once, under a lock, and kept.
+        Naming another device than the kept upload's raises; the upload is
+        moved by :meth:`invalidate_device_cache` first."""
+        with self._index_lock:
+            if self._index is None:
+                self._index = TorchIndex.from_persistence(self, device)
+            elif device is not None and _device(device) != self._index.device:
+                raise VelociError(
+                    f"index uploaded to {self._index.device}, not {torch.device(device)}"
+                )
+            return self._index
+
+    def invalidate_device_cache(self) -> None:
+        """Drop the upload (and with it everything cached on it): the next
+        search uploads the index as it stands then."""
+        with self._index_lock:
+            self._index = None
+
+    def warmup(self, queries: Optional[List[str]] = None, top: int = 10) -> float:
+        """:meth:`TorchIndex.warmup` of the upload."""
+        return self.index().warmup(queries, top)
+
+    def attach_mesh(self, mesh) -> None:
+        """:meth:`TorchIndex.attach_mesh` of the upload."""
+        self.index().attach_mesh(mesh)
+
+    def detach_mesh(self) -> None:
+        """:meth:`TorchIndex.detach_mesh` of the upload, if there is one."""
+        if self._index is not None:
+            self._index.detach_mesh()
+
+    def get_token_to_anchor(self, path: str) -> AnchorScoreCsr:
+        store = self.anchor_scores.get(path)
+        if store is None:
+            raise VelociError(f"anchor score index not found: {path!r}")
+        return store
+
+    def get_phrase_pair_to_anchor(self, path: str) -> PhraseCsr:
+        store = self.phrase_indices.get(path)
+        if store is None:
+            raise VelociError(f"phrase index not found: {path!r}")
+        return store
+
+    def heap_size_bytes(self) -> int:
+        """The bytes of :meth:`heap_size_report`'s stores and dictionaries
+        (``persistence.py:1091``)."""
+        everything = [*self.key_value_stores.values(), *self.anchor_scores.values(), *self.phrase_indices.values(),
+                      *self.dictionaries.values()]
+        return sum(store.memory_bytes() for store in everything)
 
     def heap_size_report(self) -> str:
         """The index's stores and dictionaries with their sizes in bytes
@@ -233,13 +372,6 @@ class Persistence:
 
     def has_token_to_anchor(self, path: str) -> bool:
         return path in self.anchor_scores
-
-    def get_dictionary(self, field: str) -> TermDictionary:
-        field = field[: -len(TEXTINDEX)] if field.endswith(TEXTINDEX) else field
-        dictionary = self.dictionaries.get(field)
-        if dictionary is None:
-            raise FstNotFoundError(field)
-        return dictionary
 
     def combined_host_csr(self):
         """Every searchable field's postings concatenated under global term
@@ -374,8 +506,26 @@ def long_term_rows(dictionary):
     return chars, np.minimum(lengths, 32), codes, lengths, ids
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
+_DEFAULT_DEVICE = [torch.device("cuda")]
+
+
+def set_default_device(device) -> None:
+    """Set the device that entry points take when their caller names none:
+    :func:`load_index`, :meth:`TorchIndex.from_persistence`, the upload
+    behind :meth:`Persistence.index`, the server's databases and the CLI.
+    It starts as ``"cuda"``; the CPU is taken only when asked for."""
+    _DEFAULT_DEVICE[0] = torch.device(device)
+
+
+def default_device() -> torch.device:
+    """The device of :func:`set_default_device` (``cuda`` unless set)."""
+    return _DEFAULT_DEVICE[0]
+
+
+def _device(device=None) -> torch.device:
+    """``device``, or the default device when it is None; a CUDA device
+    raises where no card is present (nothing falls back to the CPU)."""
+    dev = torch.device(default_device() if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} requested, but torch.cuda.is_available() is False"
@@ -383,11 +533,7 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _strip_textindex(field: str) -> str:
-    return field[: -len(TEXTINDEX)] if field.endswith(TEXTINDEX) else field
-
-
-class TorchIndex:
+class TorchIndex(_HostStores):
     """An index on one torch device: per-field sweep matrices and the
     combined global-key posting CSR (``key_base[field] + term id``), with
     the host term dictionaries the field search reads, the field list the
@@ -466,7 +612,7 @@ class TorchIndex:
     @classmethod
     def from_reference_arrays(
         cls, *, num_docs, all_fields, term_bytes, fields, offsets, anchors, scores, key_base,
-        device="cuda",
+        device=None,
     ) -> "TorchIndex":
         """Build the index on ``device`` from host arrays: ``all_fields``
         the index's column names in manifest order; ``term_bytes`` each
@@ -488,8 +634,9 @@ class TorchIndex:
         )
 
     @classmethod
-    def from_persistence(cls, pers: Persistence, device="cuda") -> "TorchIndex":
-        """Upload a host :class:`Persistence` (built or read)."""
+    def from_persistence(cls, pers: Persistence, device=None) -> "TorchIndex":
+        """Upload a host :class:`Persistence` (built or read) to ``device``,
+        the default device (:func:`default_device`) when it is None."""
         comb = pers.combined_host_csr()
         if comb is None:
             comb = np.zeros(2, np.int64), np.zeros(0, np.int32), np.zeros(0, np.uint16), {}
@@ -551,60 +698,12 @@ class TorchIndex:
         )
 
     def get_all_fields(self) -> List[str]:
-        """The index's columns (``search_query`` expands terms over them)."""
+        """The index's columns, in manifest order."""
         return self.all_fields
 
     def has_token_to_anchor(self, path: str) -> bool:
         """Whether ``path`` has postings (``search_query``'s field filter)."""
         return path.endswith(_SCORE_SUFFIX) and path[: -len(_SCORE_SUFFIX)] in self.key_base
-
-    def get_dictionary(self, field: str) -> TermDictionary:
-        dictionary = self.dictionaries.get(_strip_textindex(field))
-        if dictionary is None:
-            raise FstNotFoundError(field)
-        return dictionary
-
-    def has_index(self, path: str) -> bool:
-        return (
-            path in self.key_value_stores
-            or path in self.phrase_indices
-            or path in self.boost_stores
-            or self.has_token_to_anchor(path)
-        )
-
-    def tokenize_enabled(self, field: str) -> bool:
-        col = self.columns.get(_strip_textindex(field))
-        return bool(col and col["textindex_metadata"]["options"].get("tokenize", False))
-
-    def is_anchor_identity_column(self, field: str) -> bool:
-        col = self.columns.get(_strip_textindex(field))
-        return bool(col and col.get("is_anchor_identity_column"))
-
-    def get_valueid_to_parent(self, path: str):
-        """A key-value store by its path (``GET /<db>/inspect``)."""
-        store = self.key_value_stores.get(path)
-        if store is None:
-            raise VelociError(f"index not found: {path!r}")
-        return store
-
-    def get_boost(self, path: str) -> Tuple[np.ndarray, np.ndarray]:
-        store = self.boost_stores.get(path)
-        if store is None:
-            raise VelociError(f"boost index not found: {path!r}")
-        return store
-
-    def num_text_ids(self, field: str) -> int:
-        return int(self.columns[_strip_textindex(field)]["textindex_metadata"]["num_text_ids"])
-
-    @property
-    def doc_loader(self) -> DocLoader:
-        """The document store's reader, made at first use
-        (``persistence.py:647``)."""
-        if self._doc_loader is None:
-            if self.doc_store_bytes is None:
-                raise VelociError("no document store")
-            self._doc_loader = DocLoader(self.doc_store_bytes)
-        return self._doc_loader
 
     def device_boost(self, path: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """A boost column on the device, padded to ``[num_docs]``: (values
@@ -710,6 +809,13 @@ class TorchIndex:
         return [t for t in map(term_of, probes) if t.strip()]
 
 
-def load_index(directory, device="cuda") -> TorchIndex:
-    """Read an index directory and upload it to ``device``."""
+def load_index(directory, device=None) -> TorchIndex:
+    """Read an index directory and upload it to ``device``, the default
+    device (:func:`default_device`) when it is None."""
     return TorchIndex.from_persistence(Persistence.load(directory), device)
+
+
+def as_index(persistence) -> TorchIndex:
+    """The :class:`TorchIndex` an entry point searches: a Persistence's
+    upload (:meth:`Persistence.index`), or the index itself."""
+    return persistence.index() if isinstance(persistence, Persistence) else persistence

@@ -287,7 +287,9 @@ def generate_phrase_queries_for_searchterm(
 
 
 def search_query(persistence, opt: SearchQueryGeneratorParameters) -> Request:
-    """Reference query_generator.rs:175-246."""
+    """Reference query_generator.rs:175-246. ``persistence`` is a
+    ``TorchIndex`` or a ``Persistence``: only their host stores are read,
+    so a ``Persistence`` is not uploaded."""
     facetlimit = opt.facetlimit if opt.facetlimit is not None else 5
     all_fields = persistence.get_all_fields()
     all_search_fields = get_all_search_field_names(persistence, opt.fields)
@@ -350,7 +352,8 @@ def suggest_query(
     fields: Optional[List[str]] = None,
     levenshtein_auto_limit: Optional[int] = None,
 ) -> Request:
-    """Reference query_generator.rs:288-322."""
+    """Reference query_generator.rs:288-322 (``persistence`` as in
+    :func:`search_query`)."""
     if top is None:
         top = 10
     requests = []

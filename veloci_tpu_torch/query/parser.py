@@ -12,7 +12,7 @@ query_parser crate:
   literals OR-connected by default, ``attr:(...)`` attributes a subtree,
   ``term~N`` sets a levenshtein distance.
 * AST ops: query_parser/src/ast.rs — `filter_ast` (stopword removal),
-  `get_phrase_pairs` (adjacent-term pairs).
+  `walk_terms`, `get_phrase_pairs` (adjacent-term pairs).
 
 `Options` lets callers disable attributes / parentheses / levenshtein
 (query_parser/src/lib.rs:44-57).
@@ -30,6 +30,7 @@ __all__ = [
     "ParseError",
     "UserAST",
     "UserFilter",
+    "parse",
     "parse_with_opt",
 ]
 
@@ -124,6 +125,15 @@ class UserAST:
                 return UserAST.binary(f1, self.op, f2)
             return f1 if f1 is not None else f2
         return self
+
+    def walk_terms(self, cb: Callable[[str], None]) -> None:
+        if self.kind == self.LEAF:
+            cb(self.filter.phrase)
+        elif self.kind == self.ATTRIBUTED:
+            self.left.walk_terms(cb)
+        else:
+            self.left.walk_terms(cb)
+            self.right.walk_terms(cb)
 
     def get_phrase_pairs(self) -> Set[Tuple[str, str]]:
         """Adjacent-term pairs for phrase boosting (ast.rs:122-155)."""
@@ -316,6 +326,10 @@ class _Parser:
             self.next_token()
             return self.parse_sub_expression(inner)
         raise ParseError(f"Unexpected token_type, got {tok.type!r}")
+
+
+def parse(text: str) -> UserAST:
+    return _Parser(text, Options())._parse()
 
 
 def parse_with_opt(text: str, options: Options) -> UserAST:

@@ -57,15 +57,16 @@ from ..ops.generic_step import _precompute_boost
 from ..ops.search_step import batched_single_term_topk
 from ..ops.topk import segmented_topk
 from ..ops.tree_step import _apply_boost_gathered, batched_tree_candidates
+from ..persistence import as_index
 from .boost import ScoreExpression, expr_vec, resolve_ids_to_anchor
 from .facet import facet_counts, facet_relation, format_counts
 from .field_search import (
     fuzzy_spec,
-    get_term_ids_in_field,
     leaf_field,
     match_term_ids,
     prefetch_fuzzy_matches,
     search_field,
+    term_ids_and_scores,
 )
 from .result import Hit, SearchResult
 from .stats import count_path
@@ -282,7 +283,7 @@ def _resolve(index, qi, req, plan, fuzzy, memo) -> _Query:
         key = part.key()
         hit = memo.get(key)
         if hit is None:
-            ids, scores = get_term_ids_in_field(index, part, fuzzy)
+            ids, scores = term_ids_and_scores(index, part, fuzzy)
             base, nk = index.key_base[leaf_field(part)]
             keep = ids < nk
             hit = memo[key] = (ids[keep] + base, scores[keep])
@@ -698,9 +699,12 @@ def search_batch(requests: List, index) -> List[SearchResult]:
     the sum order of unions of three or more slots). Requests the tree
     routes do not take go to the per-request executor, one at a time.
     With a mesh attached (``TorchIndex.attach_mesh``) the batch is
-    answered on it (:func:`..parallel.mesh_executor.search_batch_mesh`)."""
+    answered on it (:func:`..parallel.mesh_executor.search_batch_mesh`).
+    ``index`` may be a ``Persistence``: its upload answers
+    (:func:`..persistence.as_index`)."""
     from .executor import execute
 
+    index = as_index(index)
     if index.mesh_ctx is not None:
         from ..parallel.mesh_executor import search_batch_mesh
 

@@ -62,7 +62,9 @@ from ..create import PHRASE_PAIR_TO_ANCHOR
 from ..error import FstNotFoundError, InvalidRequestError, VelociError
 from ..ops.postings import resolve_to_anchor_dense
 from ..ops.topk import topk_dense
+from ..persistence import as_index
 from ..query.request import RequestBoostPart, SearchRequest
+from ..trace import info_time
 from . import batch
 from .boost import (
     apply_anchor_boost_values_device,
@@ -306,16 +308,23 @@ def search(request, index, dense_only: bool = False) -> SearchResult:
     answers ``explain``, on the request or a leaf, too. With a mesh
     attached (``TorchIndex.attach_mesh``) every request but those that ask
     for ``explain`` or carry ``suggest`` is answered on the mesh
-    (:func:`..parallel.mesh_executor.mesh_search`, ``:699-707``)."""
-    if index.mesh_ctx is not None and not (_wants_explain(request) or request.suggest):
-        from ..parallel.mesh_executor import mesh_search
+    (:func:`..parallel.mesh_executor.mesh_search`, ``:699-707``).
 
-        count_path("mesh_per_request")
-        return mesh_search(request, index, dense_only)
-    plan = batch._plan(request, index)
-    if plan.kind != "executor" and not dense_only:
-        return batch.search_batch([request], index)[0]
-    return execute(request, index, plan.reason if plan.kind == "executor" else "dense_only")
+    ``index`` is a :class:`..persistence.TorchIndex` or a ``Persistence``,
+    which answers on its upload (:func:`..persistence.as_index`). The call
+    runs inside ``info_time("search")`` (``:737``): with the log at info
+    (:func:`..trace.enable_log`), one ``search took`` line a call."""
+    index = as_index(index)
+    with info_time("search"):
+        if index.mesh_ctx is not None and not (_wants_explain(request) or request.suggest):
+            from ..parallel.mesh_executor import mesh_search
+
+            count_path("mesh_per_request")
+            return mesh_search(request, index, dense_only)
+        plan = batch._plan(request, index)
+        if plan.kind != "executor" and not dense_only:
+            return batch.search_batch([request], index)[0]
+        return execute(request, index, plan.reason if plan.kind == "executor" else "dense_only")
 
 
 def _plan_parts(request):
@@ -388,7 +397,9 @@ def explain_plan(request, index) -> str:
     reuse counts, the 1:n boost splits, the filter mask, the boost,
     phrase, ``term_boost``, ``text_locality`` and facet nodes and the
     result node, as the reference renders them; its ``path`` node names
-    the port's route and kernels (:func:`_route_label`). No device work."""
+    the port's route and kernels (:func:`_route_label`). No device work
+    beyond a ``Persistence``'s upload."""
+    index = as_index(index)
     if request.search_req is None:
         raise InvalidRequestError("search_req is required in search")
     lines = ["digraph plan {"]
@@ -494,6 +505,7 @@ def to_documents(index, hits: List[Hit], select, result: SearchResult) -> List[D
 def search_to_result_with_doc(index, result: SearchResult, select=None) -> SearchResultWithDoc:
     """A result with its hits' documents (``search_to_result_with_doc``,
     ``:952``; reference search::to_search_result, src/search.rs:104-111)."""
+    index = as_index(index)
     return SearchResultWithDoc(
         data=to_documents(index, result.data, select, result),
         num_hits=result.num_hits,
@@ -601,6 +613,7 @@ def suggest_batch(index, requests) -> list:
     (:func:`_suggest_fast`), the rest the general one, their fuzzy parts
     matched in one prefetch for the whole batch. ``index.path_counts``
     counts each path ("suggest_fast", "suggest_general")."""
+    index = as_index(index)
     out: list = [None] * len(requests)
     general = []
     for i, request in enumerate(requests):

@@ -26,6 +26,7 @@ import torch
 
 from ..create import ANCHOR_TO_TEXT_ID, PARENT_TO_VALUE_ID, TEXTINDEX
 from ..indices import EMPTY, Direct
+from ..persistence import as_index
 from ..utils import get_steps_to_anchor
 from .read_document import text_for_id
 
@@ -169,9 +170,17 @@ def facet_list(index, facet_req, fast_counts, hit_ids) -> List[Tuple[str, int]]:
     return format_counts(index, facet_req.field, counts, facet_req.top)
 
 
-def get_facet(index, facet_req, dense: torch.Tensor) -> List[Tuple[str, int]]:
-    """The facet list of the hit set ``dense > 0`` of a dense plane
-    (:func:`facet_list`), the fast relation counted on the device, exactly."""
-    hits = torch.nonzero(dense > 0).squeeze(1)
+def get_facet(index, facet_req, hit_mask) -> List[Tuple[str, int]]:
+    """The facet list of a hit set (:func:`facet_list`), the fast relation
+    counted on the index's device, exactly. ``hit_mask`` is a dense plane
+    (a tensor; its hits are the entries > 0) or, as the reference also
+    takes, a host bool mask over the documents (``:188-197``); the two give
+    the same counts. ``index`` may be a ``Persistence`` (its upload)."""
+    index = as_index(index)
+    if isinstance(hit_mask, np.ndarray):
+        ids = np.flatnonzero(hit_mask[: index.num_docs])
+        hits = torch.from_numpy(ids.astype(np.int64)).to(index.device)
+    else:
+        hits = torch.nonzero(hit_mask > 0).squeeze(1)
     return facet_list(index, facet_req, lambda rel: facet_counts(rel, torch.zeros_like(hits), hits, 1)[0].cpu().numpy(),
                       lambda: hits.cpu().numpy())

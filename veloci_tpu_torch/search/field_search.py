@@ -43,7 +43,7 @@ from ..ops.levenshtein_sweep import (
     levenshtein_sweep_full_batch,
 )
 from ..ops.regex_dfa import cached_dfa, regex_match_pair
-from ..persistence import FOLD_SPECIAL, LONG_WIDTH, NONASCII
+from ..persistence import FOLD_SPECIAL, LONG_WIDTH, NONASCII, as_index
 from ..query.request import DEFAULT_SNIPPET_INFO
 from ..utils import normalize_text
 from .boost import apply_boost_scalar
@@ -55,6 +55,7 @@ __all__ = [
     "prefetch_fuzzy_matches",
     "get_term_ids_in_field",
     "search_field",
+    "term_ids_and_scores",
     "fuzzy_spec",
     "leaf_fuzzy",
     "leaf_path",
@@ -498,8 +499,9 @@ def match_term_ids(index, part, fuzzy_matches):
 
 
 def search_field(
-    index, part, fuzzy_matches, *, store_term_id_hits: bool = False, store_term_texts: bool = False,
-    return_term: bool = False, return_term_lowercase: bool = False,
+    index, part, fuzzy_matches, *, get_scores: bool = True, get_ids: bool = False,
+    store_term_id_hits: bool = False, store_term_texts: bool = False, return_term: bool = False,
+    return_term_lowercase: bool = False,
 ) -> FieldSearchResult:
     """The leaf's field search (``get_term_ids_in_field``, ``:404-546``): its
     matched term ids (ascending) and their f32 scores, from
@@ -507,7 +509,9 @@ def search_field(
     ``top`` (+ ``skip``) keeps the best-scoring terms, and a
     ``token_value`` boost then applies per term (search_field.rs:391-395).
 
-    On request, beside them: the kept terms' texts, as stored or lowercased
+    On request, beside them: every matched id before ``top`` in
+    ``hits_ids`` (``get_ids``); the kept terms' texts (every matched
+    term's without ``get_scores``), as stored or lowercased
     (``return_term``, ``return_term_lowercase``, or ``store_term_texts``),
     in ``terms``; ``{path: {first term: kept ids}}`` in
     ``term_id_hits_in_field`` (``store_term_id_hits``) and ``{path: kept
@@ -515,11 +519,13 @@ def search_field(
     path = leaf_path(part)
     result = FieldSearchResult(path=path, request=part)
     matched, aligned_dists, aligned_prefixes = match_term_ids(index, part, fuzzy_matches)
-    if len(matched):
+    if get_ids:
+        result.hits_ids = matched.copy()
+    if get_scores and len(matched):
         result.term_ids, result.term_scores = _scored(index, part, matched, aligned_dists, aligned_prefixes)
     if return_term or store_term_texts:
         terms = index.get_dictionary(leaf_field(part)).terms
-        for tid in result.term_ids.tolist():
+        for tid in (result.term_ids if get_scores else matched).tolist():
             result.terms[tid] = terms[tid].lower() if return_term_lowercase else terms[tid]
     if store_term_id_hits and len(result.term_ids):
         result.term_id_hits_in_field[path] = {part.terms[0]: result.term_ids.tolist()}
@@ -528,11 +534,28 @@ def search_field(
     return result
 
 
-def get_term_ids_in_field(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.ndarray]:
+def term_ids_and_scores(index, part, fuzzy_matches) -> Tuple[np.ndarray, np.ndarray]:
     """The leaf's matched term ids (ascending) and their f32 scores
     (:func:`search_field` without its metadata)."""
     res = search_field(index, part, fuzzy_matches)
     return res.term_ids, res.term_scores
+
+
+def get_term_ids_in_field(
+    persistence, request, *, get_scores: bool = True, get_ids: bool = False,
+    store_term_id_hits: bool = False, store_term_texts: bool = False, return_term: bool = False,
+    return_term_lowercase: bool = False,
+) -> FieldSearchResult:
+    """One leaf's field search on its own, with the reference's signature
+    (``get_term_ids_in_field``, ``:404-414``): :func:`search_field` with
+    the leaf's fuzzy matches made for it alone, on a ``TorchIndex`` or a
+    ``Persistence``'s upload."""
+    index = as_index(persistence)
+    return search_field(
+        index, request, leaf_fuzzy(index, request), get_scores=get_scores, get_ids=get_ids,
+        store_term_id_hits=store_term_id_hits, store_term_texts=store_term_texts, return_term=return_term,
+        return_term_lowercase=return_term_lowercase,
+    )
 
 
 def _scored(index, part, matched, aligned_dists, aligned_prefixes):
@@ -638,7 +661,8 @@ def highlight_field(index, request):
     search_field.rs:233-245 ``highlight``): the leaf's terms normalised,
     matched and resolved to the texts that hold them, each text
     highlighted -> ``[(snippet, score, text id)]`` by score, then ``skip``
-    and ``top``."""
+    and ``top``. ``index`` may be a ``Persistence`` (its upload)."""
+    index = as_index(index)
     request.terms = [normalize_text(t) for t in request.terms]
     result = search_field(index, request, leaf_fuzzy(index, request))
     resolve_token_hits_to_text_id(index, request, result, add_snippets=True)

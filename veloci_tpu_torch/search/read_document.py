@@ -116,5 +116,7 @@ def read_tree(persistence, anchor_id: int, tree: NodeTree) -> Any:
 
 
 def read_data(persistence, anchor_id: int, fields: List[str]) -> Any:
+    """The ``fields`` of one document, rebuilt from the host stores of a
+    ``TorchIndex`` or a ``Persistence`` (which is not uploaded for it)."""
     tree = get_read_tree_from_fields(persistence, fields)
     return read_tree(persistence, anchor_id, tree)

@@ -35,6 +35,7 @@ class FieldSearchResult:
     request: Any = None  # RequestSearchPart
     term_ids: np.ndarray = field(default_factory=lambda: np.empty(0, np.int64))
     term_scores: np.ndarray = field(default_factory=lambda: np.empty(0, np.float32))
+    hits_ids: np.ndarray = field(default_factory=lambda: np.empty(0, np.int64))  # every match, before top
     terms: Dict[int, str] = field(default_factory=dict)  # kept term id -> its text
     highlight: Dict[int, str] = field(default_factory=dict)  # text id -> snippet
     # path -> {the leaf's first term: kept term ids} (why_found, text locality)

@@ -18,8 +18,9 @@ server/rocket_server.rs:110-510):
 
 Databases load lazily from disk on first touch, under a lock (reference
 `ensure_database`, rocket_server.rs:95-100), onto the server's device: the
-card unless :func:`make_server` (or the CLI's ``--device``) asks for
-another; with no GPU the load raises, and nothing carries on on the CPU.
+default device (:func:`.persistence.set_default_device`, the card) unless
+:func:`make_server` (or the CLI's ``--device``) asks for another; with no
+GPU a load onto the card raises, and nothing carries on on the CPU.
 A database is warmed up after its load (``TorchIndex.warmup``) unless
 ``VELOCI_WARMUP=0``. Lone searches and suggests that arrive together fold
 into one ``search_batch`` or ``suggest_batch`` (``VELOCI_FOLD=0`` turns this
@@ -34,13 +35,16 @@ from __future__ import annotations
 import json
 import os
 import queue as _queue
+import sys
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 
+import torch
+
 from .error import VelociError
-from .persistence import TorchIndex, load_index
+from .persistence import TorchIndex, default_device, load_index
 from .query.generator import SearchQueryGeneratorParameters, search_query, suggest_query
 from .query.request import Request, RequestBoostPart, RequestSearchPart
 from .search.batch import search_batch
@@ -49,7 +53,7 @@ from .search.field_search import highlight_field
 from .search.read_document import read_data
 from .search.stats import count_path, snapshot
 
-__all__ = ["VelociServer", "make_server", "ensure_database", "PERSISTENCES"]
+__all__ = ["VelociServer", "make_server", "ensure_database", "main", "PERSISTENCES"]
 
 PERSISTENCES: Dict[str, TorchIndex] = {}
 _LOCK = threading.Lock()
@@ -79,8 +83,9 @@ def _resolve_db_path(database: str) -> str:
     return path
 
 
-def ensure_database(database: str, *, trusted_path: bool = False, device: str = "cuda") -> TorchIndex:
-    """Load (once) and return a database, on ``device``.
+def ensure_database(database: str, *, trusted_path: bool = False, device=None) -> TorchIndex:
+    """Load (once) and return a database, on ``device`` (the default device
+    when it is None).
 
     ``trusted_path=True`` is for local callers (the CLI's positional
     database arguments); HTTP handlers always go through name validation.
@@ -412,7 +417,7 @@ class _Handler(BaseHTTPRequestHandler):
 class VelociServer(ThreadingHTTPServer):
     daemon_threads = True
     allow_reuse_address = True
-    device = "cuda"  # where the databases it loads go
+    device = None  # where the databases it loads go (make_server sets it)
     # the listen backlog (socketserver's default is 5): connections the
     # kernel completes while the accept loop is behind wait here. Past it
     # the kernel drops new handshakes, and one it dropped after the client
@@ -421,8 +426,22 @@ class VelociServer(ThreadingHTTPServer):
     request_queue_size = 1024
 
 
-def make_server(host: str = "0.0.0.0", port: int = 3000, device: str = "cuda") -> VelociServer:
-    """A threading HTTP server whose databases load onto ``device``."""
+def make_server(host: str = "0.0.0.0", port: int = 3000, device=None) -> VelociServer:
+    """A threading HTTP server whose databases load onto ``device``, the
+    default device when it is None."""
     server = VelociServer((host, port), _Handler)
-    server.device = device
+    server.device = default_device() if device is None else torch.device(device)
     return server
+
+
+def main() -> None:  # pragma: no cover - the CLI's serve is the tested entry
+    """``python -m veloci_tpu_torch.server [databases] [--host] [--port]
+    [--device]`` (``main``, ``veloci_tpu/server.py:412``): the CLI's
+    ``serve``."""
+    from .cli import main as cli_main
+
+    cli_main(["serve", *sys.argv[1:]])
+
+
+if __name__ == "__main__":  # pragma: no cover
+    main()
