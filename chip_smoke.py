@@ -54,6 +54,22 @@ Phases (any failure is an exception and a non-zero exit):
              order, and requests are answered again on the CPU through the
              plain versions from the same index: ids, order, num_hits, f32
              score bits and facet lists must be identical.
+             Right after the single-leaf path, the ``baselines`` path (no
+             kernel of its own): the native single-core CPU baselines of
+             ``veloci_tpu_torch.native`` (``native/baseline.cpp``, built
+             with g++; a failed build fails the run) on the saved index's
+             ``title`` host arrays, on the first batch of 256 of the exact,
+             ``~1`` and ``~2`` mixes: the exact batch through
+             ``baseline_exact_topk`` and ``baseline_exact_topk_vint`` (whose
+             outputs must be bit-equal), the fuzzy batches through
+             ``baseline_fuzzy_topk`` (distance clamped to the term's length
+             - 1). Each of the 1,024 answers must equal the card's
+             ``search_batch`` answer for the same request: ids up to 10 in
+             order, num_hits, scores within 1e-5 relative. Then 5
+             interleaved runs of each baseline and of the card's batch of
+             the same requests: requests/s, median and spread, the
+             baselines labelled with the host CPU's model name, the card's
+             with its name and power limit; and the path's seconds.
              The fourth main path, ``executor``, sends lone requests through
              ``search``, 256 of each mix, timed one by one: ``deep_tree``
              (trees of three and four levels over zipf words, one ``~1``
@@ -1223,11 +1239,22 @@ def device_ms(fn, calls: int = 20) -> dict:
             if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total}
 
 
-def kernel_only_ms(fn, kernel: str, calls: int = 20) -> float:
+def kernel_only_ms(fn, kernel: str, calls: int = 20):
     """Mean device time of ``kernel``'s own events per call of ``fn``: the
-    kernel alone. NaN if the profiler saw none."""
-    total = sum(ms for key, ms in device_ms(fn, calls).items() if kernel in key)
-    return total if total else float("nan")
+    kernel alone. If the profiler saw no event of it, once more over 5 times
+    the calls; if it still saw none, None (null in the report), logged."""
+    for n in (calls, 5 * calls):
+        total = sum(ms for key, ms in device_ms(fn, n).items() if kernel in key)
+        if total:
+            return total
+        log(f"profiler: no device event of {kernel} in {n} calls"
+            + ("; once more over 5x the calls" if n == calls else "; its time is recorded as null"))
+    return None
+
+
+def ms_text(ms) -> str:
+    """A time in ms for the log, or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def profile_phase(profiled, report):
@@ -1349,6 +1376,159 @@ def main_path_shape(sweep, calls, baseline, report):
 
 
 # ---------------------------------------------------------------- server path
+BASELINE_RUNS = 5  # interleaved timed runs of each CPU baseline and of the card's batch
+BASELINE_REL_TOL = 1e-5  # scores, relative (tests/test_native.py's tolerance)
+
+
+def cpu_model() -> str:
+    """The host CPU's model name from /proc/cpuinfo (its first processor);
+    where that says "unknown" (a virtualised host may hide it), the vendor, family,
+    model number and clock it gives instead."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = info.get("model name", "unknown")
+    if name != "unknown":
+        return name
+    return (f"{info.get('vendor_id', 'unknown vendor')} family {info.get('cpu family', '?')} model "
+            f"{info.get('model', '?')} at {info.get('cpu MHz', '?')} MHz (/proc/cpuinfo gives no model name)")
+
+
+def baseline_mismatches(name, ids, scores, hits, results, specs):
+    """Each baseline answer against the card's result for the same request:
+    the ids (up to 10, in order), num_hits, and the scores within
+    BASELINE_REL_TOL relative. Returns (equal answers, the first mismatch's
+    text or None)."""
+    equal, first = 0, None
+    for q, (res, spec) in enumerate(zip(results, specs)):
+        n = len(res.data)
+        want_ids = [h.id for h in res.data]
+        want_scores = np.array([h.score for h in res.data], np.float64)
+        got_scores = scores[q, :n].astype(np.float64)
+        ok = (int(hits[q]) == res.num_hits and n == min(10, res.num_hits)
+              and ids[q, :n].tolist() == want_ids
+              and bool(np.all(np.abs(got_scores - want_scores) <= BASELINE_REL_TOL * np.abs(want_scores))))
+        equal += ok
+        if not ok and first is None:
+            first = (f"{name}: {spec}: baseline ids {ids[q, :n].tolist()} scores {got_scores.tolist()} "
+                     f"num_hits {int(hits[q])}; card ids {want_ids} scores {want_scores.tolist()} "
+                     f"num_hits {res.num_hits}")
+    return equal, first
+
+
+def baselines_phase(vt, index, index_dir, mixes, answers, make, report):
+    """The ``baselines`` path: the native single-core CPU baselines
+    (``native/baseline.cpp`` through ``veloci_tpu_torch.native``) on the
+    saved index's ``title`` host arrays, on the single-leaf path's first
+    batch of each mix, each answer held to the card's ``search_batch``
+    answer for the same request (ids up to 10 in order, num_hits, scores
+    within BASELINE_REL_TOL relative): the exact mix through
+    ``baseline_exact_topk`` and ``baseline_exact_topk_vint`` (bit-equal to
+    each other), the ``~1`` and ``~2`` mixes through ``baseline_fuzzy_topk``
+    (the distance clamped to the term's length - 1, as the search does).
+    Then BASELINE_RUNS interleaved timed runs of each baseline and of the
+    card's batch on the same requests: requests/s, median and spread. Fails
+    if the baselines do not build or any answer differs."""
+    from veloci_tpu_torch import native
+    from veloci_tpu_torch.ops.levenshtein import encode_query
+    from veloci_tpu_torch.search.field_search import get_default_score_for_distance
+
+    t_phase = time.perf_counter()
+    if not native.baseline_available():
+        raise AssertionError("the native CPU baselines did not build (g++, native/indexer.cpp and baseline.cpp)")
+    pers = vt.Persistence.load(str(index_dir))
+    store = pers.anchor_scores["title.textindex.to_anchor_id_score"]
+    dictionary = pers.get_dictionary("title")
+    csr = (store.offsets, store.anchors, store.scores)
+    top = 10
+
+    specs = {name: mixes[name][0] for name in ("exact", "fuzzy_d1", "fuzzy_d2")}
+    leaves = {name: [d["search_req"]["search"] for d in batch] for name, batch in specs.items()}
+    # exact: every case variant of the term in one slot, at distance 0's score
+    term_ids = [dictionary.get_ignore_case(leaf["terms"][0]) for leaf in leaves["exact"]]
+    tids = np.full((len(term_ids), max(1, max(map(len, term_ids)))), -1, np.int32)
+    for q, ids in enumerate(term_ids):
+        tids[q, : len(ids)] = ids
+    tscores = np.full(tids.shape, float(get_default_score_for_distance(0, False)), np.float32)
+    tslots = np.zeros(tids.shape, np.int32)
+    t0 = time.perf_counter()
+    vint = native.baseline_encode_vint(*csr)
+    fuzzy_index = native.baseline_fuzzy_index(dictionary)
+    prep_s = time.perf_counter() - t0
+    fuzzy_args = {}
+    for name in ("fuzzy_d1", "fuzzy_d2"):
+        queries = np.zeros((len(leaves[name]), 32), np.uint16)
+        qlens, dists = np.zeros(len(queries), np.int32), np.zeros(len(queries), np.int32)
+        for q, leaf in enumerate(leaves[name]):
+            term = leaf["terms"][0].lower()
+            queries[q], qlens[q] = encode_query(term)
+            dists[q] = min(leaf["levenshtein_distance"], max(len(term) - 1, 0))
+        fuzzy_args[name] = (fuzzy_index, queries, qlens, dists, *csr, top)
+    runs = {
+        "exact_raw": lambda: native.baseline_exact_topk(*csr, tids, tscores, tslots, top),
+        "exact_vint": lambda: native.baseline_exact_topk_vint(vint, tids, tscores, top),
+        "fuzzy_d1": lambda: native.baseline_fuzzy_topk(*fuzzy_args["fuzzy_d1"]),
+        "fuzzy_d2": lambda: native.baseline_fuzzy_topk(*fuzzy_args["fuzzy_d2"]),
+    }
+    outs = {name: run() for name, run in runs.items()}  # also the page-warming run
+    raw, vint_out = outs["exact_raw"], outs["exact_vint"]
+    if not (np.array_equal(raw[0], vint_out[0]) and np.array_equal(raw[1].view(np.uint32), vint_out[1].view(np.uint32))
+            and np.array_equal(raw[2], vint_out[2])):
+        raise AssertionError("baseline_exact_topk_vint's answers are not bit-equal to baseline_exact_topk's")
+    checks = {"exact_raw": "exact", "exact_vint": "exact", "fuzzy_d1": "fuzzy_d1", "fuzzy_d2": "fuzzy_d2"}
+    equal, mismatches = {}, []
+    for name, mix in checks.items():
+        ids, scores, hits = outs[name][:3]
+        equal[name], first = baseline_mismatches(name, ids, scores, hits, answers[mix][0], specs[mix])
+        if first:
+            mismatches.append(first)
+    matches = {name: int(outs[name][3].sum()) for name in ("fuzzy_d1", "fuzzy_d2")}
+    total = sum(len(answers[mix][0]) for mix in checks.values())
+    log(f"baselines: {sum(equal.values())} of {total} answers equal to the card's search_batch answers "
+        f"({', '.join(f'{k} {v}' for k, v in equal.items())}); raw and vint bit-equal; fuzzy dictionary "
+        f"matches {matches}; vint blob {vint.blob.nbytes} bytes, fuzzy index {len(fuzzy_index.lens)} rows, "
+        f"built in {prep_s:.3f} s")
+    if mismatches:
+        raise AssertionError("a native baseline's answer differs from the card's: " + "; ".join(mismatches[:4]))
+
+    # timing: each baseline and the card's batch of the same requests, in turns
+    card_reqs = {mix: [make(d, index) for d in batch] for mix, batch in specs.items()}
+    card = {f"card_{mix}": (lambda reqs=reqs: vt.search_batch(reqs, index)) for mix, reqs in card_reqs.items()}
+    for fn in card.values():
+        fn()
+    torch.cuda.synchronize()
+    samples = {name: [] for name in (*runs, *card)}
+    for _ in range(BASELINE_RUNS):
+        for name, fn in (*runs.items(), *card.items()):
+            t0 = time.perf_counter()
+            fn()
+            if name.startswith("card_"):
+                torch.cuda.synchronize()
+            samples[name].append(time.perf_counter() - t0)
+    cpu = cpu_model()
+    rows = {}
+    for name, secs in samples.items():
+        n = len(specs[checks.get(name, name.removeprefix("card_"))])
+        rps = sorted(n / s for s in secs)
+        rows[name] = dict(requests=n, runs=len(secs), rps_median=float(statistics.median(rps)),
+                          rps_min=rps[0], rps_max=rps[-1], seconds=secs,
+                          on=f"GPU {report['card']}" if name.startswith("card_") else f"CPU {cpu}, one core")
+    for name, row in rows.items():
+        log(f"baselines {name:>13}: {row['requests']} requests x {row['runs']}: {row['rps_median']:.1f} "
+            f"requests/s median (spread {row['rps_min']:.1f} .. {row['rps_max']:.1f}); on {row['on']}")
+    seconds = time.perf_counter() - t_phase
+    log(f"baselines path: {seconds:.2f} s")
+    return dict(cpu=cpu, card=report["card"], equal=equal, total=total, fuzzy_matches=matches, rows=rows,
+                seconds=seconds)
+
+
 SERVER_DB = "smoke_index"  # the saved index's directory name, under build/
 SERVER_DEVICE = "cuda"  # the child server's --device
 SERVER_THREADS = 32  # client threads of the concurrent bursts
@@ -2366,6 +2546,10 @@ def main() -> None:
         for k in needed:
             if path_launches[path][k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched by the main path {path}")
+        if path == "single_leaf":  # the baselines path, on this path's requests and answers
+            gc.callbacks.remove(on_gc)
+            report["baselines"] = baselines_phase(vt, index, index_dir, mixes, answers, make, report)
+            gc.callbacks.append(on_gc)
     gc.callbacks.remove(on_gc)
     if path_routes["executor"].get("executor", 0) <= 0:
         raise AssertionError("the executor path answered no request on the dense executor")
@@ -2542,12 +2726,12 @@ def main() -> None:
         entry = regex_dfa.regex_match_pair if pair else regex_dfa.regex_match
         row["kernel_alone_ms"] = kernel_only_ms(lambda: entry(*args, dfa, False), "dfa_walk_kernel")
         log(f"kernel {entry.__name__} {name}: kernel alone (profiler device events) "
-            f"{row['kernel_alone_ms']:.4f} ms")
+            f"{ms_text(row['kernel_alone_ms'])}")
     del regex_timed
     select_row["kernel_ms"] = kernel_only_ms(
         lambda: levenshtein_sweep.levenshtein_select_banded(*select_args), "banded_select_kernel")
     log(f"select at title x 1, band 2, d 2: fused kernel alone (profiler device events) "
-        f"{select_row['kernel_ms']:.4f} ms")
+        f"{ms_text(select_row['kernel_ms'])}")
 
     profiled = {name: ([make(d, index) for d in batches[1]], lambda reqs: vt.search_batch(reqs, index))
                 for name, batches in requests_of.items()
@@ -2578,7 +2762,7 @@ def main() -> None:
     )
     report["b2_kernel_only_ms"] = b2_kernel_ms
     log(f"B2 (old single-query entry) at title x 1, band 2: kernel alone (profiler device events) "
-        f"{b2_kernel_ms:.4f} ms, "
+        f"{ms_text(b2_kernel_ms)}, "
         f"call (CUDA events) {kernel_times[('title', 1, 2)][0]:.4f} ms")
     # B1 at title x 256, band 2, and B3 at the main path's shape and at
     # title x 256, each kernel alone
@@ -2594,7 +2778,7 @@ def main() -> None:
     report["sweep_kernel_only_ms"] = {}
     for name, (fn, kernel, call_ms) in alone.items():
         report["sweep_kernel_only_ms"][name] = kernel_only_ms(fn, kernel)
-        log(f"{name}: kernel alone (profiler device events) {report['sweep_kernel_only_ms'][name]:.4f} ms, "
+        log(f"{name}: kernel alone (profiler device events) {ms_text(report['sweep_kernel_only_ms'][name])}, "
             f"call (CUDA events) {call_ms:.4f} ms")
     del title_args, main_full_args
 

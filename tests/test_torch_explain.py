@@ -21,7 +21,9 @@ against the JAX package.
   a term, an AND, a deep tree, requests of the batched route's shapes with
   their extras, ``skip`` and ``top``.
 * ``explain_plan`` against the reference's, line for line but the ``path``
-  node, which names the port's route and kernels.
+  node, which names the port's route and kernels; and ``tests/test_units.py``'s
+  ``test_explain_plan_renders_compiler_structure`` on the port, the port's
+  route in place of the reference's label (ROADMAP C13).
 
 Tolerance: exact. Ids, order, ``num_hits``, facets and why-found metadata
 equal; every explain entry equal as JSON text, so each float equals the
@@ -377,6 +379,33 @@ def test_explain_plan_names_the_ports_route(corpus):
     before = dict(index.path_counts)
     vt.explain_plan(vt.Request.from_dict(OWN["deep_tree"]), index)
     assert dict(index.path_counts) == before  # no request was answered
+
+
+def test_explain_plan_renders_compiler_structure():
+    """``tests/test_units.py``'s case of this name on the port, which the
+    rebound file leaves out (ROADMAP C13): every assertion but the
+    reference's route label ("host tree" or "device tree"), in whose place
+    the path node names the port's route."""
+    pers = vt.Persistence.create_from_str('{"a": "x y", "tags": ["t"], "common": "3"}', "{}")
+    x, y = {"terms": ["x"], "path": "a"}, {"terms": ["y"], "path": "a"}
+    req = vt.Request.from_dict({
+        "search_req": {"or": {"queries": [{"search": x}, {"search": y}]}},
+        "filter": {"search": x},  # the same part as the first leaf: deduplicated
+        "boost": [{"path": "common", "boost_fun": "Log10", "param": 1}],
+        "phrase_boosts": [{"search1": x, "search2": y}],
+        "facets": [{"field": "tags[]"}],
+    })
+    index = pers.index("cpu")
+    dot = vt.explain_plan(req, index)
+    assert "reused x" in dot
+    assert "filter mask (computed ONCE, broadcast)" in dot
+    assert "phrase_pair_to_anchor" in dot
+    assert "facet counts" in dot
+    assert "union" in dot
+    assert dot.count("field_search") == 2
+    assert "host tree" not in dot and "device tree" not in dot
+    assert f'  path [label="execution path: {port_executor._route_label(req, index)}", shape=note];' in dot
+    assert "execution path: dense executor (boost_without_column: " in dot
 
 
 # ---------------------------------------------------------------- C10: a facet value the field does not store

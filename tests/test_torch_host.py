@@ -24,6 +24,7 @@ reference's library again once the build that won has put it in place."""
 
 import dataclasses
 import json
+import shutil
 import time
 from pathlib import Path
 
@@ -324,3 +325,242 @@ def test_native_sorts(n, reference_library):
         assert getattr(port_native, name)(got_k, got_v) and getattr(ref_native, name)(want_k, want_v)
         assert np.array_equal(got_k, want_k) and np.array_equal(got_v, want_v), name
     assert not port_native.sort_u64(keys.astype(np.int64))
+
+
+# ------------------------------------------------------------ host settings
+# The settings the reference reads (its doc store, native loader and spill
+# sorter), each set on both packages and held to the reference's behaviour.
+
+def _docs(n: int = 3000):
+    return [json.dumps({"t": f"doc {i} " + "pad " * (i % 37)}) for i in range(n)]
+
+
+def test_docstore_codec_zlib_setting(monkeypatch, reference_library):
+    from veloci_tpu import doc_store as ref_doc_store
+    from veloci_tpu_torch import doc_store
+
+    docs = _docs()
+    blobs = {}
+    for codec in ("zlib", "lz"):
+        monkeypatch.setenv("VELOCI_DOCSTORE_CODEC", codec)
+        writer, ref_writer = doc_store.DocStoreWriter(), ref_doc_store.DocStoreWriter()
+        writer.add_docs(docs)
+        ref_writer.add_docs(docs)
+        blobs[codec] = writer.finish()
+        assert blobs[codec] == ref_writer.finish(), codec
+        data = "\n".join(docs)
+        if codec == "zlib":  # no native pass under a forced zlib, in either package
+            assert doc_store.build_doc_store_native(data) is None and ref_doc_store.build_doc_store_native(data) is None
+        else:
+            assert doc_store.build_doc_store_native(data)[0] == blobs["lz"]
+    loader = doc_store.DocLoader(blobs["zlib"])
+    first = int(loader._index[0, 1])
+    assert blobs["zlib"][first] == 0 and blobs["lz"][first] == 1  # each block's codec byte
+    for blob in blobs.values():
+        assert list(doc_store.DocLoader(blob).iter_docs()) == docs
+
+
+def _legacy_blob(docs, per_block: int = 100) -> bytes:
+    """A ``VTDS`` blob as the first format wrote it: a block is its doc
+    count + 1 (u32), then zlib of the u32 doc offsets and the documents; no
+    codec byte, no raw size."""
+    import zlib
+
+    body, rows = b"", []
+    for first in range(0, len(docs), per_block):
+        raw = [d.encode("utf-8") for d in docs[first:first + per_block]]
+        offsets = np.zeros(len(raw) + 1, dtype=np.uint32)
+        np.cumsum([len(r) for r in raw], out=offsets[1:])
+        block = len(offsets).to_bytes(4, "little") + zlib.compress(offsets.tobytes() + b"".join(raw), 1)
+        rows.append((first, len(body), len(body) + len(block)))
+        body += block
+    tail = np.array(rows, dtype=np.uint64).tobytes()
+    return body + tail + len(tail).to_bytes(8, "little") + len(docs).to_bytes(8, "little") + b"VTDS"
+
+
+def test_docstore_reads_legacy_vtds_blobs():
+    from veloci_tpu import doc_store as ref_doc_store
+    from veloci_tpu_torch import doc_store
+
+    docs = _docs(750) + [json.dumps({"t": "größe 日本語"}, ensure_ascii=False)]
+    blob = _legacy_blob(docs)
+    loader, ref_loader = doc_store.DocLoader(blob), ref_doc_store.DocLoader(blob)
+    assert loader.num_docs == ref_loader.num_docs == len(docs)
+    assert list(loader.iter_docs()) == list(ref_loader.iter_docs()) == docs
+    assert loader.get_doc(750) == docs[750]
+
+
+def test_docstore_cache_blocks_setting(monkeypatch):
+    from veloci_tpu import doc_store as ref_doc_store
+    from veloci_tpu_torch import doc_store
+
+    docs = _docs()
+    writer = doc_store.DocStoreWriter()
+    writer.add_docs(docs)
+    blob = writer.finish()
+    for blocks in ("1", None):
+        if blocks is None:
+            monkeypatch.delenv("VELOCI_DOCSTORE_CACHE_BLOCKS", raising=False)
+        else:
+            monkeypatch.setenv("VELOCI_DOCSTORE_CACHE_BLOCKS", blocks)
+        loader, ref_loader = doc_store.DocLoader(blob), ref_doc_store.DocLoader(blob)
+        ids = [0, 2999, 1500, 0, 2999]
+        assert len(np.unique(np.searchsorted(loader._first_ids, ids, side="right"))) == 3  # three blocks
+        for i in ids:
+            assert loader.get_doc(i) == ref_loader.get_doc(i) == docs[i]
+        kept = 1 if blocks else 3
+        assert len(loader._cache) == len(ref_loader._cache) == kept, blocks
+        assert list(loader._cache) == list(ref_loader._cache)  # the same blocks, in LRU order
+
+
+def test_no_native_setting_builds_through_python(tmp_path, monkeypatch):
+    from veloci_tpu_torch import create_native
+
+    monkeypatch.setenv("VELOCI_TPU_NO_NATIVE", "1")
+    for module in (port_native, ref_native):
+        monkeypatch.setattr(module, "_LIB", None)
+        monkeypatch.setattr(module, "_LIB_TRIED", False)
+    native_builds = []
+    real_build = create_native.build_native
+    monkeypatch.setattr(create_native, "build_native", lambda *a: native_builds.append(1) or real_build(*a))
+    assert not port_native.native_available() and not ref_native.native_available()
+    assert not port_native.lz_available() and port_native.doc_store_body(b'{"a": 1}', 16384) is None
+    data, config = _corpus("nested"), CONFIGS["nested"]
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    RefPersistence.from_built(ref_create(data, config)).save(str(ref_dir))
+    Persistence.from_built(create_indices_from_str(data, config)).save(str(port_dir))
+    assert not native_builds
+    names = sorted(p.name for p in ref_dir.iterdir())
+    assert names == sorted(p.name for p in port_dir.iterdir())
+    for name in names:
+        if name == "metaData.json":
+            assert json.loads((ref_dir / name).read_text()) == json.loads((port_dir / name).read_text())
+        else:
+            assert (ref_dir / name).read_bytes() == (port_dir / name).read_bytes(), name
+    docs = (port_dir / "docs.bin").read_bytes()
+    assert docs[-4:] == b"VTD2" and docs[0] == 0  # zlib blocks: no LZ codec without the library
+
+
+_SPILL_CHILD = r"""
+import sys
+from pathlib import Path
+from veloci_tpu_torch import Persistence, create_indices_from_str, spill
+assert spill.SPILL_PAIRS == 50, spill.SPILL_PAIRS
+sorters = []
+real = spill.SpillSorter.__init__
+def counted(self, *a, **kw):
+    sorters.append(1)
+    real(self, *a, **kw)
+spill.SpillSorter.__init__ = counted
+Persistence.from_built(create_indices_from_str(Path(sys.argv[1]).read_text(), Path(sys.argv[2]).read_text())).save(sys.argv[3])
+print("SPILLED", len(sorters))
+"""
+
+
+def test_spill_pairs_setting_builds_the_same_index(tmp_path):
+    """``VELOCI_SPILL_PAIRS`` is read when ``spill`` is imported: a child
+    process with 50 builds through the spill sorter and writes the index the
+    reference writes with its default."""
+    import os
+    import subprocess
+    import sys
+
+    data, config = _corpus("nested"), CONFIGS["nested"]
+    (tmp_path / "data.ndjson").write_text(data)
+    (tmp_path / "config.toml").write_text(config)
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, VELOCI_SPILL_PAIRS="50", PYTHONPATH=str(root))
+    proc = subprocess.run([sys.executable, "-c", _SPILL_CHILD, str(tmp_path / "data.ndjson"),
+                           str(tmp_path / "config.toml"), str(tmp_path / "spilled")],
+                          env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split("SPILLED")[1]) > 0
+    RefPersistence.from_built(ref_create(data, config)).save(str(tmp_path / "ref"))
+    names = sorted(p.name for p in (tmp_path / "ref").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "spilled").iterdir())
+    for name in names:
+        if name != "metaData.json":
+            assert (tmp_path / "ref" / name).read_bytes() == (tmp_path / "spilled" / name).read_bytes(), name
+
+
+def test_ingest_threads_setting(monkeypatch):
+    """``VELOCI_INGEST_THREADS`` reaches the native indexer: 1 (the
+    single-threaded walker) and 7 chunks build the same index."""
+    calls = []
+    lib = port_native._load()
+    real = lib.vl_index_ndjson_mt
+
+    def recorded(data, n, cb, nthreads):
+        calls.append(nthreads)
+        return real(data, n, cb, nthreads)
+
+    monkeypatch.setattr(lib, "vl_index_ndjson_mt", recorded)
+    data, config = "\n".join([_corpus("nested")] * 20), CONFIGS["nested"]
+    built = {}
+    for threads in ("1", "7", None):
+        if threads is None:
+            monkeypatch.delenv("VELOCI_INGEST_THREADS", raising=False)
+        else:
+            monkeypatch.setenv("VELOCI_INGEST_THREADS", threads)
+        built[threads] = create_indices_from_str(data, config, use_native=True)
+    assert calls == [1, 7, 0]
+    for threads in ("7", None):
+        for group in ("anchor_scores", "key_value_stores", "phrase_indices"):
+            a, b = getattr(built["1"], group), getattr(built[threads], group)
+            assert a.keys() == b.keys()
+            for key in a:
+                for attr in ("offsets", "anchors", "scores", "values", "keys"):
+                    if hasattr(a[key], attr):
+                        assert np.array_equal(getattr(a[key], attr), getattr(b[key], attr)), (group, key, attr)
+
+
+def test_malloc_tune_setting(monkeypatch):
+    """``VELOCI_MALLOC_TUNE=0`` makes no ``mallopt`` call, in either package;
+    unset, each raises the mmap and trim thresholds."""
+    import ctypes
+
+    calls = []
+
+    class Libc:
+        def __init__(self, *_a, **_kw):
+            pass
+
+        def mallopt(self, *args):
+            calls.append(args)
+
+    monkeypatch.setattr(ctypes, "CDLL", Libc)
+    for value, want in (("0", []), (None, [(-3, 1 << 30), (-1, 1 << 30)])):
+        if value is None:
+            monkeypatch.delenv("VELOCI_MALLOC_TUNE", raising=False)
+        else:
+            monkeypatch.setenv("VELOCI_MALLOC_TUNE", value)
+        for module in (port_native, ref_native):
+            calls.clear()
+            module._tune_malloc()
+            assert calls == want, (module.__name__, value)
+
+
+def test_native_cache_setting(tmp_path, monkeypatch):
+    """``VELOCI_NATIVE_CACHE`` names the build directory; unset, it is
+    ``build/native/`` at the repository root. The library is loaded from
+    the named directory: a copy of the built one, so nothing is rebuilt."""
+    monkeypatch.delenv("VELOCI_NATIVE_CACHE", raising=False)
+    assert port_native.native_available()
+    default = port_native._so_path()
+    assert default.parent == Path(port_native.__file__).resolve().parent.parent / "build" / "native"
+    monkeypatch.setenv("VELOCI_NATIVE_CACHE", str(tmp_path / "cache"))
+    moved = port_native._so_path()
+    assert moved == tmp_path / "cache" / default.name
+    moved.parent.mkdir()
+    shutil.copyfile(default, moved)
+
+    def no_build(so_path):
+        raise AssertionError(f"rebuilt {so_path}")
+
+    loaded = []
+    real_cdll = port_native.ctypes.CDLL
+    monkeypatch.setattr(port_native, "_build_lib", no_build)
+    monkeypatch.setattr(port_native.ctypes, "CDLL", lambda path: loaded.append(path) or real_cdll(path))
+    monkeypatch.setattr(port_native, "_LIB", None)
+    monkeypatch.setattr(port_native, "_LIB_TRIED", False)
+    assert port_native.native_available() and loaded == [str(moved)]

@@ -7,7 +7,9 @@ CLI, imported and answering over HTTP, ``parallel/``: an attached
 8-shard CPU mesh answering as the unsharded index does, and the host
 fan-out over separate indices, the reference's own call
 ``search(request, Persistence.create_from_str(...))`` on the CPU default,
-``trace.enable_log`` and the CLI's test subcommands, included), and refuses a CUDA device
+the native CPU baselines ``baseline_exact_topk`` and ``baseline_fuzzy_topk``
+on its arrays, ``trace.enable_log`` and the CLI's test subcommands,
+included), and refuses a CUDA device
 it does not have. ``chip_smoke.py`` refuses to run without a card, in the
 repository, in that tree and alone."""
 
@@ -129,6 +131,19 @@ own = Persistence.create_from_str(docs, "{}")  # the reference's own call
 assert search(Request.from_dict({"search_req": leaf("hello")}), own).data == \
     search(Request.from_dict({"search_req": leaf("hello")}), index).data
 assert own.index() is own.index() and own.index().device.type == "cpu"
+from veloci_tpu_torch import native
+from veloci_tpu_torch.ops.levenshtein import encode_query
+store = own.anchor_scores["title.textindex.to_anchor_id_score"]
+tids = np.array([own.get_dictionary("title").get_ignore_case("hello")], np.int32)  # hello, Hello: one slot
+got = native.baseline_exact_topk(store.offsets, store.anchors, store.scores, tids, np.full(tids.shape, 10.0, np.float32),
+                                 np.zeros(tids.shape, np.int32), 10)
+want = search(Request.from_dict({"search_req": leaf("hello")}), own)
+assert tids.shape == (1, 2) and got[2][0] == want.num_hits and got[0][0][: len(want.data)].tolist() == [h.id for h in want.data]
+q, qlen = encode_query("helo")
+got = native.baseline_fuzzy_topk(native.baseline_fuzzy_index(own.get_dictionary("title")), q[None], np.array([qlen], np.int32),
+                                 np.array([1], np.int32), store.offsets, store.anchors, store.scores, 10)
+want = search(Request.from_dict({"search_req": leaf("helo", levenshtein_distance=1)}), own)
+assert got[3][0] > 1 and got[2][0] == want.num_hits and got[0][0][: len(want.data)].tolist() == [h.id for h in want.data]
 with tempfile.TemporaryDirectory() as d:
     Path(d, "book.txt").write_text("hello world\nhelp\n\nthe word\n\n\nhells x")
     veloci_tpu_torch.cli.main(["create_test_index", "--corpus", "gutenberg", "--data", str(Path(d, "book.txt")),

@@ -7,13 +7,17 @@ plus per-block doc offsets, enabling O(log blocks) random access.
 
 Reference: doc_store/src/lib.rs (`DocStoreWriter` 84-166 / `DocLoader` 11-62,
 FLUSH_THRESHOLD=16384 at :7). Blocks use the native C++ LZ4-style codec
-(native/indexer.cpp `vlz`) when available and zlib level 1 otherwise. Each
-block records its codec, so blobs mix freely and load anywhere.
+(native/indexer.cpp `vlz`) when available and zlib level 1 otherwise;
+``VELOCI_DOCSTORE_CODEC`` (``zlib`` or ``lz``) forces one. Each block
+records its codec, so blobs mix freely and load anywhere. The loader also
+reads the legacy ``VTDS`` blob (zlib blocks, no codec byte) and keeps
+``VELOCI_DOCSTORE_CACHE_BLOCKS`` (512) decompressed blocks.
 """
 
 from __future__ import annotations
 
 import io
+import os
 import threading
 import zlib
 from collections import OrderedDict
@@ -28,12 +32,23 @@ from .native import lz_available, lz_compress, lz_decompress
 __all__ = ["DocLoader", "DocStoreWriter", "FLUSH_THRESHOLD", "build_doc_store_native"]
 
 FLUSH_THRESHOLD = 16_384
+_MAGIC_V1 = b"VTDS"  # legacy: zlib-only blocks, no codec byte
 _MAGIC = b"VTD2"
 _LEVEL = 1
 _CODEC_ZLIB = 0
 _CODEC_LZ = 1
-# decompressed blocks kept by a DocLoader: 512 x 16 KB = 8 MB
+# decompressed blocks kept by a DocLoader, unless VELOCI_DOCSTORE_CACHE_BLOCKS
+# says otherwise: 512 x 16 KB = 8 MB
 _CACHE_BLOCKS = 512
+
+
+def _pick_codec() -> int:
+    forced = os.environ.get("VELOCI_DOCSTORE_CODEC")
+    if forced == "zlib":
+        return _CODEC_ZLIB
+    if forced == "lz":
+        return _CODEC_LZ
+    return _CODEC_LZ if lz_available() else _CODEC_ZLIB
 
 
 class DocStoreWriter:
@@ -83,7 +98,7 @@ class DocStoreWriter:
     def finish(self) -> bytes:
         if self._block:
             self._flush_block()
-        codec = _CODEC_LZ if lz_available() else _CODEC_ZLIB
+        codec = _pick_codec()
 
         def compress_one(payload: bytes) -> Tuple[int, bytes]:
             if codec == _CODEC_LZ:
@@ -127,11 +142,14 @@ class DocLoader:
     """Random access reader over the bytes produced by DocStoreWriter, with
     a small LRU of decompressed blocks (hit-list fetches cluster but rarely
     share one block). Blocks of either codec read: zlib and the native LZ
-    codec (``native.lz_decompress``)."""
+    codec (``native.lz_decompress``), and the legacy ``VTDS`` blob's zlib
+    blocks."""
 
     def __init__(self, data: bytes) -> None:
-        if data[-4:] != _MAGIC:
+        magic = data[-4:]
+        if magic not in (_MAGIC, _MAGIC_V1):
             raise VelociError("not a doc store blob")
+        self._v1 = magic == _MAGIC_V1
         self.num_docs = int.from_bytes(data[-12:-4], "little")
         index_size = int.from_bytes(data[-20:-12], "little")
         index_start = len(data) - 20 - index_size
@@ -141,6 +159,7 @@ class DocLoader:
         self._data = data
         self._first_ids = self._index[:, 0]
         self._cache: "OrderedDict[int, Tuple[np.ndarray, bytes]]" = OrderedDict()
+        self._cache_max = int(os.environ.get("VELOCI_DOCSTORE_CACHE_BLOCKS", _CACHE_BLOCKS))
         # readers on several threads share the LRU: its updates take the lock
         self._cache_lock = threading.Lock()
 
@@ -151,18 +170,20 @@ class DocLoader:
                 self._cache.move_to_end(block)
                 return hit
         _first_id, start, end = (int(x) for x in self._index[block])
-        codec = self._data[start]
-        noffsets = int.from_bytes(self._data[start + 1 : start + 5], "little")
-        raw_size = int.from_bytes(self._data[start + 5 : start + 9], "little")
-        comp = self._data[start + 9 : end]
-        if codec == _CODEC_LZ:
-            payload = lz_decompress(comp, raw_size)
+        if self._v1:
+            noffsets = int.from_bytes(self._data[start : start + 4], "little")
+            payload = zlib.decompress(self._data[start + 4 : end])
         else:
-            payload = zlib.decompress(comp)
+            noffsets = int.from_bytes(self._data[start + 1 : start + 5], "little")
+            comp = self._data[start + 9 : end]
+            if self._data[start] == _CODEC_LZ:
+                payload = lz_decompress(comp, int.from_bytes(self._data[start + 5 : start + 9], "little"))
+            else:
+                payload = zlib.decompress(comp)
         entry = (np.frombuffer(payload[: noffsets * 4], dtype=np.uint32), payload[noffsets * 4 :])
         with self._cache_lock:
             self._cache[block] = entry
-            if len(self._cache) > _CACHE_BLOCKS:
+            if len(self._cache) > self._cache_max:
                 self._cache.popitem(last=False)
         return entry
 
@@ -185,8 +206,8 @@ def build_doc_store_native(data_str: str):
     (:func:`.native.doc_store_body`: line split, blocks and LZ in C++),
     byte-equal to :class:`DocStoreWriter`'s with the LZ codec:
     ``(blob, num_docs, bytes_indexed)``, or None without the native
-    library."""
-    if not lz_available():
+    library or when ``VELOCI_DOCSTORE_CODEC`` forces zlib."""
+    if _pick_codec() != _CODEC_LZ:
         return None
     from .native import doc_store_body
 

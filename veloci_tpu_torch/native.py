@@ -1,18 +1,32 @@
-"""ctypes bindings for the native indexing core (``native/indexer.cpp``).
+"""ctypes bindings for the native host core (``native/indexer.cpp`` and
+``native/baseline.cpp``): the port's copy of ``veloci_tpu/native.py``.
 
-The port's copy of the indexer half of ``veloci_tpu/native.py``. It builds
-``native/indexer.cpp`` and the port's ``csrc/doc_store_body.cpp`` (one
-library) with g++ into ``build/native/`` at the repository root
-(gitignored) on first use and exposes :func:`index_ndjson`, which parses,
-flattens, tokenizes and counts an ndjson corpus in C++ and returns numpy
-arrays per field path, plus the pack helpers and the LZ block codec the
-index build and the document store use. The pure-Python pipeline in
-:mod:`veloci_tpu_torch.create` is the fallback where g++ is missing.
-:func:`sort_u64`, :func:`sort_kv_u64_u32`, :func:`lexsort_kv_u64_u32` and
-:func:`doc_store_body` are the reference's API counterparts: no code of
-the port calls them. The reference's query baselines
-(``native/baseline.cpp``, ``veloci_tpu/native.py:588-815``) are not built
-here.
+Both sources build with g++ into one library, as the reference builds them
+(``baseline.cpp`` calls ``indexer.cpp``'s LZ codec), on first use, into
+``build/native/`` at the repository root (gitignored; ``VELOCI_NATIVE_CACHE``
+names another directory). The module exposes :func:`index_ndjson`, which
+parses, flattens, tokenizes and counts an ndjson corpus in C++ and returns
+numpy arrays per field path, the pack helpers and the LZ block codec the
+index build and the document store use, and :func:`doc_store_body`, the
+document store's write path in one pass. The pure-Python pipeline in
+:mod:`veloci_tpu_torch.create` is the fallback where g++ is missing or
+``VELOCI_TPU_NO_NATIVE`` is set.
+
+The single-core CPU baselines (:func:`baseline_exact_topk`,
+:func:`baseline_exact_topk_vint`, :func:`baseline_fuzzy_topk` and the
+functions that make their indexes) answer single-leaf queries over the host arrays of a field
+the way the engine the system was modelled on does (a posting scan, sort,
+dedup keeping the max, top-n sort; the fuzzy one walks the sorted
+dictionary): they are the CPU stand-in a benchmark compares the card with,
+and no search path calls them. :func:`sort_u64`, :func:`sort_kv_u64_u32`
+and :func:`lexsort_kv_u64_u32` are the reference's API counterparts; no
+code of the port calls them either.
+
+Settings, read as the reference reads them: ``VELOCI_TPU_NO_NATIVE``
+(any value: no library), ``VELOCI_INGEST_THREADS`` (the native indexer's
+threads; 1 the single-threaded walker, 0 or unset one a core),
+``VELOCI_MALLOC_TUNE=0`` (no ``mallopt`` at import) and
+``VELOCI_NATIVE_CACHE``.
 
 The library is keyed by a hash of the sources, the flags and the host CPU's
 feature flags: it is built with ``-march=native``, so a build directory
@@ -44,14 +58,22 @@ __all__ = [
     "sort_kv_u64_u32",
     "lexsort_kv_u64_u32",
     "doc_store_body",
+    "baseline_available",
+    "baseline_exact_topk",
+    "VintBaselineIndex",
+    "baseline_encode_vint",
+    "baseline_exact_topk_vint",
+    "FuzzyBaselineIndex",
+    "baseline_fuzzy_index",
+    "baseline_fuzzy_topk",
 ]
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_TRIED = False
 
 _ROOT = Path(__file__).resolve().parent.parent
-_SOURCES = (_ROOT / "native" / "indexer.cpp", _ROOT / "veloci_tpu_torch" / "csrc" / "doc_store_body.cpp")
-_CACHE = _ROOT / "build" / "native"
+_SOURCES = (_ROOT / "native" / "indexer.cpp", _ROOT / "native" / "baseline.cpp")
+_CACHE = _ROOT / "build" / "native"  # VELOCI_NATIVE_CACHE overrides it
 _CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 
@@ -66,7 +88,10 @@ def _tune_malloc() -> None:
     M_TRIM_THRESHOLD keeps freed blocks pooled for reuse, trading retained
     RSS for not re-faulting the same pages. Done once, when this module is
     first imported (by the index build, the document store or the
-    persistence layer), whether or not the native library builds."""
+    persistence layer), whether or not the native library builds.
+    ``VELOCI_MALLOC_TUNE=0`` opts out."""
+    if os.environ.get("VELOCI_MALLOC_TUNE", "1") == "0":
+        return
     try:
         libc = ctypes.CDLL(None, use_errno=True)
         M_TRIM_THRESHOLD, M_MMAP_THRESHOLD = -1, -3
@@ -97,7 +122,8 @@ def _so_path() -> Path:
     for src in _SOURCES:
         h.update(src.read_bytes())
     h.update(_host_cpu())
-    return _CACHE / f"libveloci_native-{h.hexdigest()[:16]}.so"
+    cache = Path(os.environ.get("VELOCI_NATIVE_CACHE", _CACHE))
+    return cache / f"libveloci_native-{h.hexdigest()[:16]}.so"
 
 
 _CONFIG_CB = ctypes.CFUNCTYPE(
@@ -135,7 +161,7 @@ def _load() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
-    if not all(src.exists() for src in _SOURCES):
+    if os.environ.get("VELOCI_TPU_NO_NATIVE") or not all(src.exists() for src in _SOURCES):
         return None
     so_path = _so_path()
     if not so_path.exists() and not _build_lib(so_path):
@@ -222,10 +248,21 @@ def _load() -> Optional[ctypes.CDLL]:
         getattr(lib, name).restype = None
         getattr(lib, name).argtypes = [p64, p32, ctypes.c_int64]
     i64p = ctypes.POINTER(ctypes.c_int64)
-    lib.vl_doc_store_body.restype = ctypes.c_int64
-    lib.vl_doc_store_body.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
-                                       ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, p64, ctypes.c_int64,
-                                       i64p, i64p, i64p]
+    u16p, f32p, i32p = ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
+    i32 = ctypes.c_int32
+    lib.vbl_doc_store_body.restype = ctypes.c_int64
+    lib.vbl_doc_store_body.argtypes = [ctypes.c_char_p, ctypes.c_int64, i32, ctypes.POINTER(ctypes.c_uint8),
+                                       ctypes.c_int64, p64, ctypes.c_int64, i64p, i64p, i64p]
+    lib.vbl_exact_topk.restype = None
+    lib.vbl_exact_topk.argtypes = [i64p, p32, u16p, i32p, f32p, i32p, i32, i32, i32, i32, p32, f32p, i32p]
+    lib.vbl_encode_vint.restype = ctypes.c_int64
+    lib.vbl_encode_vint.argtypes = [i64p, p32, u16p, i32, ctypes.POINTER(ctypes.c_uint8), i64p]
+    lib.vbl_exact_topk_vint.restype = None
+    lib.vbl_exact_topk_vint.argtypes = [ctypes.POINTER(ctypes.c_uint8), i64p, i32p, f32p, i32, i32, i32, i32,
+                                        p32, f32p, i32p]
+    lib.vbl_fuzzy_topk.restype = None
+    lib.vbl_fuzzy_topk.argtypes = [u16p, i32p, i32p, i32, i32, u16p, i32p, i32p, i64p, p32, u16p, i32, i32, i32,
+                                   p32, f32p, i32p, i32p]
     _LIB = lib
     return _LIB
 
@@ -301,10 +338,11 @@ def index_ndjson(data: str, get_path_config, score_paths=None) -> tuple:
 
     cb_ref = _CONFIG_CB(cb)
     raw = data.encode("utf-8")
-    # chunked multi-threaded parse, as many threads as cores (the C call
-    # releases the GIL; the config callback re-acquires it briefly per new
-    # path)
-    handle = lib.vl_index_ndjson_mt(raw, len(raw), cb_ref, 0)
+    # chunked multi-threaded parse (the C call releases the GIL; the config
+    # callback re-acquires it briefly per new path). VELOCI_INGEST_THREADS=1
+    # takes the single-threaded walker; 0 or unset, one thread a core.
+    nthreads = int(os.environ.get("VELOCI_INGEST_THREADS", "0"))
+    handle = lib.vl_index_ndjson_mt(raw, len(raw), cb_ref, nthreads)
     try:
         err = lib.vl_error(handle)
         if err:
@@ -535,9 +573,13 @@ def lexsort_kv_u64_u32(keys, vals) -> bool:
     return True
 
 
+def _ptr(arr: np.ndarray, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
 def doc_store_body(data: bytes, flush_threshold: int):
     """The document store's body from ndjson in one native pass
-    (``vl_doc_store_body``, ``csrc/doc_store_body.cpp``): ``(body bytes,
+    (``vbl_doc_store_body``, ``native/baseline.cpp``): ``(body bytes,
     index rows uint64 [B, 3], num_docs, bytes_indexed)``, or None without
     the native library."""
     lib = _load()
@@ -550,12 +592,164 @@ def doc_store_body(data: bytes, flush_threshold: int):
     out = np.zeros(out_cap, dtype=np.uint8)
     idx = np.zeros(max_blocks * 3, dtype=np.uint64)
     n_blocks, num_docs, bytes_indexed = ctypes.c_int64(0), ctypes.c_int64(0), ctypes.c_int64(0)
-    size = lib.vl_doc_store_body(
-        data, n, flush_threshold, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out_cap,
-        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), max_blocks, ctypes.byref(n_blocks),
-        ctypes.byref(num_docs), ctypes.byref(bytes_indexed),
+    size = lib.vbl_doc_store_body(
+        data, n, flush_threshold, _ptr(out, ctypes.c_uint8), out_cap, _ptr(idx, ctypes.c_uint64), max_blocks,
+        ctypes.byref(n_blocks), ctypes.byref(num_docs), ctypes.byref(bytes_indexed),
     )
     if size < 0:
         return None
     return out[:size].tobytes(), idx[: n_blocks.value * 3].reshape(-1, 3), int(num_docs.value), int(
         bytes_indexed.value)
+
+
+# ------------------------------------------------------ CPU baseline engine
+def _csr_args(offsets, anchors, scores) -> tuple:
+    """A field's anchor-score CSR as the baselines take it: offsets int64,
+    anchors uint32, scores uint16 (the index score x 100), contiguous."""
+    return (np.ascontiguousarray(offsets, dtype=np.int64), np.ascontiguousarray(anchors, dtype=np.uint32),
+            np.ascontiguousarray(scores, dtype=np.uint16))
+
+
+def _outputs(nq: int, top_n: int) -> tuple:
+    return (np.zeros((nq, top_n), dtype=np.uint32), np.zeros((nq, top_n), dtype=np.float32),
+            np.zeros(nq, dtype=np.int32))
+
+
+def baseline_available() -> bool:
+    """Whether the native library, and with it the CPU baselines, loads."""
+    return _load() is not None
+
+
+def baseline_exact_topk(offsets, anchors, scores, term_ids, term_scores, term_slots, top_n: int):
+    """Exact single-leaf queries on one CPU core over a field's raw
+    anchor-score CSR (``vbl_exact_topk``): per query, each term id of its
+    row (``term_ids`` int32 [nq, t], -1 pads) scans its postings with the
+    score ``term_scores * score / 100``, hits keep the max per (slot of
+    ``term_slots``, anchor), and over two slots or more an anchor's slot
+    scores add up, times the square of the number of its slots that scored
+    at least 1e-5 (a union); the top ``top_n`` come by score, then id,
+    descending. Returns ``(ids uint32 [nq, top_n], scores float32 [nq,
+    top_n], num_hits int32 [nq])``, zero past the hits, or None without the
+    native library."""
+    lib = _load()
+    if lib is None:
+        return None
+    offsets, anchors, scores = _csr_args(offsets, anchors, scores)
+    term_ids = np.ascontiguousarray(term_ids, dtype=np.int32)
+    term_scores = np.ascontiguousarray(term_scores, dtype=np.float32)
+    term_slots = np.ascontiguousarray(term_slots, dtype=np.int32)
+    nq, t_per_q = term_ids.shape
+    out_ids, out_scores, out_hits = _outputs(nq, top_n)
+    lib.vbl_exact_topk(
+        _ptr(offsets, ctypes.c_int64), _ptr(anchors, ctypes.c_uint32), _ptr(scores, ctypes.c_uint16),
+        _ptr(term_ids, ctypes.c_int32), _ptr(term_scores, ctypes.c_float), _ptr(term_slots, ctypes.c_int32),
+        nq, t_per_q, len(offsets) - 1, top_n,
+        _ptr(out_ids, ctypes.c_uint32), _ptr(out_scores, ctypes.c_float), _ptr(out_hits, ctypes.c_int32),
+    )
+    return out_ids, out_scores, out_hits
+
+
+class VintBaselineIndex:
+    """A field's anchor-score CSR in delta + varint storage, one blob a term
+    (``varint(count)``, then ``varint(anchor delta), varint(score)`` a
+    posting), for :func:`baseline_exact_topk_vint`."""
+
+    def __init__(self, blob, blob_offsets, num_keys):
+        self.blob = blob  # uint8 [size]
+        self.blob_offsets = blob_offsets  # int64 [num_keys + 1]
+        self.num_keys = num_keys
+
+
+def baseline_encode_vint(offsets, anchors, scores) -> Optional[VintBaselineIndex]:
+    """Encode a raw anchor-score CSR for :func:`baseline_exact_topk_vint`
+    (``vbl_encode_vint``: once to size the blob, once to fill it); None
+    without the native library."""
+    lib = _load()
+    if lib is None:
+        return None
+    offsets, anchors, scores = _csr_args(offsets, anchors, scores)
+    num_keys = len(offsets) - 1
+    csr = (_ptr(offsets, ctypes.c_int64), _ptr(anchors, ctypes.c_uint32), _ptr(scores, ctypes.c_uint16), num_keys)
+    size = lib.vbl_encode_vint(*csr, None, None)
+    blob = np.zeros(max(int(size), 1), dtype=np.uint8)
+    blob_offsets = np.zeros(num_keys + 1, dtype=np.int64)
+    lib.vbl_encode_vint(*csr, _ptr(blob, ctypes.c_uint8), _ptr(blob_offsets, ctypes.c_int64))
+    return VintBaselineIndex(blob, blob_offsets, num_keys)
+
+
+def baseline_exact_topk_vint(index: VintBaselineIndex, term_ids, term_scores, top_n: int):
+    """:func:`baseline_exact_topk` over the varint storage, every posting
+    decoded a query (``vbl_exact_topk_vint``); its terms share one slot (hits
+    keep the max per anchor). Same returns; None without the native
+    library."""
+    lib = _load()
+    if lib is None:
+        return None
+    term_ids = np.ascontiguousarray(term_ids, dtype=np.int32)
+    term_scores = np.ascontiguousarray(term_scores, dtype=np.float32)
+    nq, t_per_q = term_ids.shape
+    out_ids, out_scores, out_hits = _outputs(nq, top_n)
+    lib.vbl_exact_topk_vint(
+        _ptr(index.blob, ctypes.c_uint8), _ptr(index.blob_offsets, ctypes.c_int64),
+        _ptr(term_ids, ctypes.c_int32), _ptr(term_scores, ctypes.c_float), nq, t_per_q, index.num_keys, top_n,
+        _ptr(out_ids, ctypes.c_uint32), _ptr(out_scores, ctypes.c_float), _ptr(out_hits, ctypes.c_int32),
+    )
+    return out_ids, out_scores, out_hits
+
+
+class FuzzyBaselineIndex:
+    """A dictionary's lowercased char matrix with its rows in lexicographic
+    order (shorter terms first), for :func:`baseline_fuzzy_topk`."""
+
+    def __init__(self, chars, lens, row_tid):
+        self.chars = chars  # uint16 [m, L], lex-sorted rows
+        self.lens = lens  # int32 [m]
+        self.row_tid = row_tid  # int32 [m] -> dictionary term id
+
+
+def baseline_fuzzy_index(dictionary) -> Optional[FuzzyBaselineIndex]:
+    """The sorted matrix of a ``TermDictionary``'s compact char matrix
+    (:meth:`.indices.TermDictionary.char_matrix_compact`); None without the
+    native library."""
+    if _load() is None:
+        return None
+    chars, lens, ids = dictionary.char_matrix_compact()
+    # rows are zero-padded, so raw row order is lexicographic order with
+    # shorter terms first, the order vbl_fuzzy_topk's prefix skip needs
+    order = np.lexsort(tuple(chars[:, j] for j in range(chars.shape[1] - 1, -1, -1)))
+    return FuzzyBaselineIndex(
+        np.ascontiguousarray(chars[order], dtype=np.uint16),
+        np.ascontiguousarray(lens[order], dtype=np.int32),
+        np.ascontiguousarray(ids[order], dtype=np.int32),
+    )
+
+
+def baseline_fuzzy_topk(index: FuzzyBaselineIndex, queries, qlens, dists, offsets, anchors, scores, top_n: int):
+    """Fuzzy single-leaf queries on one CPU core (``vbl_fuzzy_topk``): each
+    query (``queries`` uint16 [nq, 32], lowercased as
+    ``ops.levenshtein.encode_query`` writes them, ``qlens``, ``dists``)
+    walks the sorted dictionary with a Levenshtein row a prefix, skipping
+    every term under a prefix that is past its distance, then resolves its
+    matches with the score of their distance as :func:`baseline_exact_topk`
+    does one slot. Returns ``(ids, scores, num_hits, num_matches int32
+    [nq])``, or None without the native library."""
+    lib = _load()
+    if lib is None:
+        return None
+    m, width = index.chars.shape
+    queries = np.ascontiguousarray(queries, dtype=np.uint16)
+    qlens = np.ascontiguousarray(qlens, dtype=np.int32)
+    dists = np.ascontiguousarray(dists, dtype=np.int32)
+    offsets, anchors, scores = _csr_args(offsets, anchors, scores)
+    nq = queries.shape[0]
+    out_ids, out_scores, out_hits = _outputs(nq, top_n)
+    out_matches = np.zeros(nq, dtype=np.int32)
+    lib.vbl_fuzzy_topk(
+        _ptr(index.chars, ctypes.c_uint16), _ptr(index.lens, ctypes.c_int32), _ptr(index.row_tid, ctypes.c_int32),
+        m, width, _ptr(queries, ctypes.c_uint16), _ptr(qlens, ctypes.c_int32), _ptr(dists, ctypes.c_int32),
+        _ptr(offsets, ctypes.c_int64), _ptr(anchors, ctypes.c_uint32), _ptr(scores, ctypes.c_uint16),
+        len(offsets) - 1, nq, top_n,
+        _ptr(out_ids, ctypes.c_uint32), _ptr(out_scores, ctypes.c_float), _ptr(out_hits, ctypes.c_int32),
+        _ptr(out_matches, ctypes.c_int32),
+    )
+    return out_ids, out_scores, out_hits, out_matches

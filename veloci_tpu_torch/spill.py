@@ -24,8 +24,9 @@ import numpy as np
 
 __all__ = ["SpillSorter", "SPILL_PAIRS"]
 
-# pairs beyond this go through the spill sorter (see create._pack_anchor_scores)
-SPILL_PAIRS = 64_000_000
+# pairs beyond this go through the spill sorter (see create._pack_anchor_scores);
+# VELOCI_SPILL_PAIRS, read at import, sets another count
+SPILL_PAIRS = int(os.environ.get("VELOCI_SPILL_PAIRS", str(64_000_000)))
 
 _BLOCK = 4_000_000  # merge block size (items per side)
 
