@@ -1,6 +1,7 @@
 """The port's exact top-k and single-term run read against the JAX package's
 ``topk_dense_exact`` / ``topk_positions`` and ``batched_single_term_topk``
-(``_single_term_impl``), on tie batteries. Tolerance: exact equality of ids,
+(``_single_term_impl``), on tie batteries; the port reads a single term's
+run as its singles route does, ``gather_runs`` then ``segmented_topk``. Tolerance: exact equality of ids,
 order, hit counts and f32 score bits (the same f32 products on both sides)."""
 
 import numpy as np
@@ -11,7 +12,7 @@ import torch
 
 from veloci_tpu.ops.search_step import batched_single_term_topk as ref_single_term
 from veloci_tpu.ops.topk import topk_dense_exact
-from veloci_tpu_torch.ops.search_step import batched_single_term_topk
+from veloci_tpu_torch.ops.search_step import gather_runs
 from veloci_tpu_torch.ops.topk import rank_key, segmented_topk
 from test_torch_limits import bounded, bounded_module  # noqa: F401 -- a time limit on each test and module fixture
 
@@ -127,11 +128,12 @@ def test_single_term_run_equals_reference(postings, k):
         )
     )
     packed = np.stack([anchors, scores01.view(np.int32)], axis=1)
-    (seg, ids, scores), hits = batched_single_term_topk(
+    hits = offsets[terms + 1] - offsets[terms]  # a run's length, as the reference counts num_hits
+    q, run_anchors, run_scores = gather_runs(
         torch.from_numpy(offsets), torch.from_numpy(packed), torch.from_numpy(terms),
-        torch.from_numpy(tscore), offsets[terms + 1] - offsets[terms],
-        torch.full((len(terms),), k),
+        torch.from_numpy(tscore), hits,
     )
+    seg, ids, scores = segmented_topk(q, run_scores, run_anchors, len(terms), torch.full((len(terms),), k))
     seg, ids, scores = seg.numpy(), ids.numpy(), scores.numpy()
     np.testing.assert_array_equal(hits, r_hits)
     for row in range(len(terms)):

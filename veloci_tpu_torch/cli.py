@@ -21,7 +21,10 @@ veloci_bins/src/bin/):
 Every command that uploads an index takes ``--device``; without it, the
 default device (:func:`.persistence.set_default_device`): the card. The log
 level comes from ``VELOCI_LOG`` (:func:`.trace.enable_log`); at ``info``
-each ``search`` logs its time.
+each root span logs its time: a ``search took`` line per ``search`` call,
+a ``search_batch took`` line per direct ``search_batch`` call (each of
+``serve``'s folds and batch requests), and a ``request.parse took`` line
+per ``Request.from_dict`` (each request body ``serve`` parses).
 
 Usage: ``python -m veloci_tpu_torch.cli <command> [args]``.
 """

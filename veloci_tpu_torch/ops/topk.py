@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..trace import trace_time
+
 __all__ = ["score_desc_key", "rank_key", "segmented_topk", "topk_dense"]
 
 _I31 = (1 << 31) - 1
@@ -35,15 +37,16 @@ def segmented_topk(seg, scores, ids, num_segments: int, k):
     unique within a segment, ``k [num_segments]`` int64. Returns
     ``(seg, ids, scores)`` of the kept entries, grouped by segment in
     ascending segment order and ranked within each."""
-    order = torch.argsort(rank_key(scores, ids), stable=True)
-    order = order[torch.argsort(seg[order], stable=True)]
-    seg_s = seg[order]
-    counts = torch.bincount(seg_s, minlength=num_segments)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(seg_s.shape[0], device=seg_s.device) - starts[seg_s]
-    keep = rank < k[seg_s]
-    order = order[keep]
-    return seg_s[keep], ids[order], scores[order]
+    with trace_time("segmented_topk"):
+        order = torch.argsort(rank_key(scores, ids), stable=True)
+        order = order[torch.argsort(seg[order], stable=True)]
+        seg_s = seg[order]
+        counts = torch.bincount(seg_s, minlength=num_segments)
+        starts = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(seg_s.shape[0], device=seg_s.device) - starts[seg_s]
+        keep = rank < k[seg_s]
+        order = order[keep]
+        return seg_s[keep], ids[order], scores[order]
 
 
 def topk_dense(dense: torch.Tensor, k: int):
@@ -51,8 +54,9 @@ def topk_dense(dense: torch.Tensor, k: int):
     (score desc, id desc): ``top_k_scores`` / ``topk_dense_exact``
     (``veloci_tpu/ops/topk.py:91-123``). Returns ``(ids int64, scores f32)``
     on the plane's device."""
-    ids = torch.nonzero(dense > 0).squeeze(1)
-    scores = dense[ids]
-    k = min(int(k), ids.shape[0])
-    _key, order = torch.topk(rank_key(scores, ids), k, largest=False, sorted=True)
-    return ids[order], scores[order]
+    with trace_time("topk_dense"):
+        ids = torch.nonzero(dense > 0).squeeze(1)
+        scores = dense[ids]
+        k = min(int(k), ids.shape[0])
+        _key, order = torch.topk(rank_key(scores, ids), k, largest=False, sorted=True)
+        return ids[order], scores[order]

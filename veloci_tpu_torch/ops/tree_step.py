@@ -39,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..trace import trace_time
 from .generic_step import _apply_boost
 from .search_step import gather_runs
 from .topk import score_desc_key
@@ -62,15 +63,16 @@ def tree_candidates_single(seg, a, s, num_docs: int):
     several fields): each anchor's maximum, kept where it reaches the gate
     (``tree_candidates_single``). Returns ``(query, anchor, score)`` ordered
     by (query, anchor desc)."""
-    # rows sorted by (query, anchor desc, score desc): each anchor's first
-    # row in its query holds its maximum
-    order = torch.argsort(((_I31 - a) << 32) | score_desc_key(s), stable=True)
-    order = order[torch.argsort(seg[order], stable=True)]
-    seg, a, s = seg[order], a[order], s[order]
-    first = torch.ones_like(seg, dtype=torch.bool)
-    first[1:] = (seg[1:] != seg[:-1]) | (a[1:] != a[:-1])
-    cand = first & (a < num_docs) & (s >= _EPS)
-    return seg[cand], a[cand], s[cand]
+    with trace_time("tree_candidates_single"):
+        # rows sorted by (query, anchor desc, score desc): each anchor's first
+        # row in its query holds its maximum
+        order = torch.argsort(((_I31 - a) << 32) | score_desc_key(s), stable=True)
+        order = order[torch.argsort(seg[order], stable=True)]
+        seg, a, s = seg[order], a[order], s[order]
+        first = torch.ones_like(seg, dtype=torch.bool)
+        first[1:] = (seg[1:] != seg[:-1]) | (a[1:] != a[:-1])
+        cand = first & (a < num_docs) & (s >= _EPS)
+        return seg[cand], a[cand], s[cand]
 
 
 def _anchor_bits(num_docs: int) -> int:
@@ -82,22 +84,23 @@ def _slot_entries(seg, a, s, slot, num_docs: int, slot_bits: int, *per_row, phra
     (query, anchor desc, slot key), with its best score, for each
     ``per_row`` tensor (constant within an entry) its value, and, given the
     ``phrase`` row flags, each entry's count of phrase rows (else None)."""
-    ab = _anchor_bits(num_docs)
-    if seg.numel() and int(seg.max()).bit_length() + ab + slot_bits > 63:
-        raise ValueError("query, anchor and slot keys do not fit an int64 key")
-    keep = (a >= 0) & (a < num_docs)
-    seg, a, s, slot = seg[keep], a[keep], s[keep], slot[keep]
-    key = (seg << (ab + slot_bits)) | ((num_docs - 1 - a) << slot_bits) | slot
-    ekey, inv = torch.unique(key, sorted=True, return_inverse=True)
-    best = torch.full(ekey.shape, -torch.inf, dtype=s.dtype, device=s.device)
-    best.scatter_reduce_(0, inv, s, "amax")
-    extra = [torch.zeros(ekey.shape, dtype=t.dtype, device=t.device).scatter_(0, inv, t[keep])
-             for t in per_row]
-    pcount = None
-    if phrase is not None:
-        pcount = torch.zeros(ekey.shape, dtype=torch.int64, device=s.device)
-        pcount.index_add_(0, inv, phrase[keep].to(torch.int64))
-    return ekey, best, extra, pcount
+    with trace_time("_slot_entries"):
+        ab = _anchor_bits(num_docs)
+        if seg.numel() and int(seg.max()).bit_length() + ab + slot_bits > 63:
+            raise ValueError("query, anchor and slot keys do not fit an int64 key")
+        keep = (a >= 0) & (a < num_docs)
+        seg, a, s, slot = seg[keep], a[keep], s[keep], slot[keep]
+        key = (seg << (ab + slot_bits)) | ((num_docs - 1 - a) << slot_bits) | slot
+        ekey, inv = torch.unique(key, sorted=True, return_inverse=True)
+        best = torch.full(ekey.shape, -torch.inf, dtype=s.dtype, device=s.device)
+        best.scatter_reduce_(0, inv, s, "amax")
+        extra = [torch.zeros(ekey.shape, dtype=t.dtype, device=t.device).scatter_(0, inv, t[keep])
+                 for t in per_row]
+        pcount = None
+        if phrase is not None:
+            pcount = torch.zeros(ekey.shape, dtype=torch.int64, device=s.device)
+            pcount.index_add_(0, inv, phrase[keep].to(torch.int64))
+        return ekey, best, extra, pcount
 
 
 def _phrase_factor(final, pcount, run_of):

@@ -545,10 +545,10 @@ class TorchIndex(_HostStores):
     request.
 
     A server's threads share one index. Its counters are added to under a
-    lock (:meth:`count_path`, :meth:`count_rows`); its lazy fills
-    (``cache``, ``term_boost_cache``, the document loader) are single dict
-    reads and writes of values that do not change once made, so two
-    threads that race at worst make one twice."""
+    lock (:meth:`count_path`, :meth:`count_rows`, :meth:`count_sorted`);
+    its lazy fills (``cache``, ``term_boost_cache``, the document loader)
+    are single dict reads and writes of values that do not change once
+    made, so two threads that race at worst make one twice."""
 
     def __init__(
         self, *, num_docs, all_fields, dictionaries, fields, long_terms, host_offsets, offsets,
@@ -580,6 +580,7 @@ class TorchIndex(_HostStores):
         self.last_warmup_breakdown: dict = {}  # seconds per step of the last warmup()
         self.path_counts: Counter = Counter()  # requests answered per route
         self.gathered_rows: Counter = Counter()  # posting rows read per route
+        self.sorted_keys: Counter = Counter()  # keys the device sorts or selects over, per route
         self.bytes_indexed = 0  # the source data's size (Persistence.bytes_indexed)
         self._count_lock = threading.Lock()  # server threads share the counters
         self.mesh_ctx = None  # set by attach_mesh: search and search_batch answer on the mesh
@@ -608,6 +609,13 @@ class TorchIndex(_HostStores):
         """Add ``n`` to ``gathered_rows[route]``."""
         with self._count_lock:
             self.gathered_rows[route] += n
+
+    def count_sorted(self, route: str, n: int) -> None:
+        """Add ``n`` to ``sorted_keys[route]``: the length of the input of
+        a device sort, ``unique(sorted=True)`` or top-k, read from a shape
+        the host already holds."""
+        with self._count_lock:
+            self.sorted_keys[route] += n
 
     @classmethod
     def from_reference_arrays(

@@ -19,6 +19,7 @@ from dataclasses import dataclass, field as dc_field
 from typing import List, Optional
 
 from ..error import InvalidRequestError
+from ..trace import info_time
 
 __all__ = [
     "Request",
@@ -252,36 +253,39 @@ class Request:
 
     @classmethod
     def from_dict(cls, d: dict) -> "Request":
-        search_req = None
-        if d.get("search_req") is not None:
-            search_req = SearchRequest.from_dict(d["search_req"])
-        elif any(k in d for k in ("search", "or", "and")):
-            # convenience: a bare SearchRequest JSON is accepted at top level
-            search_req = SearchRequest.from_dict(
-                {k: d[k] for k in ("search", "or", "and") if k in d}
+        """The request of its JSON ``d``: the root span ``request.parse``
+        (:mod:`..trace`)."""
+        with info_time("request.parse"):
+            search_req = None
+            if d.get("search_req") is not None:
+                search_req = SearchRequest.from_dict(d["search_req"])
+            elif any(k in d for k in ("search", "or", "and")):
+                # convenience: a bare SearchRequest JSON is accepted at top level
+                search_req = SearchRequest.from_dict(
+                    {k: d[k] for k in ("search", "or", "and") if k in d}
+                )
+            return cls(
+                search_req=search_req,
+                suggest=[RequestSearchPart.from_dict(s) for s in d["suggest"]]
+                if d.get("suggest")
+                else None,
+                boost=[RequestBoostPart.from_dict(b) for b in d["boost"]]
+                if d.get("boost")
+                else None,
+                boost_term=[RequestSearchPart.from_dict(b) for b in d["boost_term"]]
+                if d.get("boost_term")
+                else None,
+                facets=[FacetRequest.from_dict(f) for f in d["facets"]]
+                if d.get("facets")
+                else None,
+                phrase_boosts=[RequestPhraseBoost.from_dict(p) for p in d["phrase_boosts"]]
+                if d.get("phrase_boosts")
+                else None,
+                select=d.get("select"),
+                filter=SearchRequest.from_dict(d["filter"]) if d.get("filter") else None,
+                top=d.get("top", 10),
+                skip=d.get("skip"),
+                why_found=d.get("why_found", False),
+                text_locality=d.get("text_locality", False),
+                explain=d.get("explain", False),
             )
-        return cls(
-            search_req=search_req,
-            suggest=[RequestSearchPart.from_dict(s) for s in d["suggest"]]
-            if d.get("suggest")
-            else None,
-            boost=[RequestBoostPart.from_dict(b) for b in d["boost"]]
-            if d.get("boost")
-            else None,
-            boost_term=[RequestSearchPart.from_dict(b) for b in d["boost_term"]]
-            if d.get("boost_term")
-            else None,
-            facets=[FacetRequest.from_dict(f) for f in d["facets"]]
-            if d.get("facets")
-            else None,
-            phrase_boosts=[RequestPhraseBoost.from_dict(p) for p in d["phrase_boosts"]]
-            if d.get("phrase_boosts")
-            else None,
-            select=d.get("select"),
-            filter=SearchRequest.from_dict(d["filter"]) if d.get("filter") else None,
-            top=d.get("top", 10),
-            skip=d.get("skip"),
-            why_found=d.get("why_found", False),
-            text_locality=d.get("text_locality", False),
-            explain=d.get("explain", False),
-        )

@@ -54,10 +54,11 @@ from ..create import BOOST_VALID_TO_VALUE, PHRASE_PAIR_TO_ANCHOR, TEXTINDEX
 from ..error import InvalidRequestError
 from ..query.request import SearchRequest
 from ..ops.generic_step import _precompute_boost
-from ..ops.search_step import batched_single_term_topk
+from ..ops.search_step import gather_runs
 from ..ops.topk import segmented_topk
 from ..ops.tree_step import _apply_boost_gathered, batched_tree_candidates
 from ..persistence import as_index
+from ..trace import debug_time, info_time
 from .boost import ScoreExpression, expr_vec, resolve_ids_to_anchor
 from .facet import facet_counts, facet_relation, format_counts
 from .field_search import (
@@ -356,8 +357,8 @@ def _emit(request, ids, scores, num_hits, start, facets=None) -> SearchResult:
 
 
 def _split(seg, ids, scores, n):
-    """Flat per-query rows (grouped by query) -> per-query numpy arrays."""
-    seg, ids, scores = seg.cpu().numpy(), ids.cpu().numpy(), scores.cpu().numpy()
+    """Flat per-query rows (grouped by query), numpy arrays read back ->
+    per-query numpy arrays."""
     bounds = np.searchsorted(seg, np.arange(n + 1))
     return [(ids[a:b], scores[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
 
@@ -510,7 +511,8 @@ def _facets_of(index, request, fields, rows) -> Dict[str, list]:
 
 def _answer(index, route, queries, requests, results, start, extras=None) -> None:
     """Answer one route's queries, a chunk of queries per gather and sort;
-    ``extras`` (a generic group's) are applied to each chunk's candidates."""
+    ``extras`` (a generic group's) are applied to each chunk's candidates.
+    Counts the rows gathered and the keys sorted on ``index``."""
     if not queries:
         return
     dev, ho = index.device, index.host_offsets
@@ -535,18 +537,14 @@ def _answer(index, route, queries, requests, results, start, extras=None) -> Non
         chunk = queries[lo:hi]
         n = len(chunk)
         sl = slice(t_start[lo], t_start[hi])
-        tids, cnt = up(g[sl]), counts[sl]
-        tsc = up(np.concatenate([q.scores for q in chunk]), np.float32)
-        k = torch.tensor([q.k for q in chunk], dtype=torch.int64, device=dev)
-        tq = up(np.repeat(np.arange(n), t_start[lo + 1 : hi + 1] - t_start[lo:hi]))
-        facet_rows = ()
-        if route == "single":
-            (seg, ids, scores), num_hits = batched_single_term_topk(
-                index.offsets, index.packed, tids, tsc, cnt, k
-            )
-        else:
-            phrase_rows = None
-            if extras is not None:
+        cnt = counts[sl]
+        with debug_time("answer.upload"):
+            tids = up(g[sl])
+            tsc = up(np.concatenate([q.scores for q in chunk]), np.float32)
+            k = torch.tensor([q.k for q in chunk], dtype=torch.int64, device=dev)
+            tq = up(np.repeat(np.arange(n), t_start[lo + 1 : hi + 1] - t_start[lo:hi]))
+            phrase_rows = tree_args = None
+            if route != "single" and extras is not None:
                 # the chunk's small per-query arrays (filter rows, phrase
                 # rows) staged in one host buffer, one copy
                 frow, pq, pa = _stage(
@@ -555,18 +553,23 @@ def _answer(index, route, queries, requests, results, start, extras=None) -> Non
                 )
                 if phrase:
                     phrase_rows = (pq, pa, torch.full_like(pa, phrase_key))
-            if route == "single_slot":
-                seg, a, final = batched_tree_candidates(
-                    index.offsets, index.packed, tids, tsc, tq, cnt, index.num_docs
-                )
-            else:
+            if route in ("tree", "deep"):
                 deep = route == "deep"
-                seg, a, final = batched_tree_candidates(
-                    index.offsets, index.packed, tids, tsc, tq, cnt, index.num_docs,
+                tree_args = dict(
                     term_slots=up(keys[sl]), slot_bits=slot_bits, shifts=shifts,
                     num_groups=None if deep else up([q.num_groups for q in chunk], np.int64),
                     term_ngs=up(np.concatenate([q.ng for q in chunk])) if deep else None,
                     phrase_rows=phrase_rows,
+                )
+        with debug_time("answer.candidates"):
+            if route == "single":
+                seg, a, final = gather_runs(index.offsets, index.packed, tids, tsc, cnt)
+            else:
+                # the single-slot route sorts its rows twice, the others
+                # once (torch.unique), phrase rows included
+                index.count_sorted(route, (2 if tree_args is None else 1) * int(rows[lo:hi].sum()))
+                seg, a, final = batched_tree_candidates(
+                    index.offsets, index.packed, tids, tsc, tq, cnt, index.num_docs, **(tree_args or {})
                 )
             if extras is not None:
                 if extras.fmasks is not None:
@@ -577,17 +580,24 @@ def _answer(index, route, queries, requests, results, start, extras=None) -> Non
                     final = _apply_boost_gathered(final, a, pre)
                 hit = final > 0
                 seg, a, final = seg[hit], a[hit], final[hit]
-                facet_rows = [
-                    facet_counts(rel, seg, a, n).cpu().numpy() for _f, rel in extras.facets
-                ]
-            num_hits = torch.bincount(seg, minlength=n)
-            seg, ids, scores = segmented_topk(seg, final, a, n, k)
-        nh = num_hits.cpu().numpy() if torch.is_tensor(num_hits) else num_hits
-        fields = [f for f, _rel in extras.facets] if facet_rows else []
-        for row, (q, (i, s), h) in enumerate(zip(chunk, _split(seg, ids, scores, n), nh)):
-            req = requests[q.qi]
-            facets = _facets_of(index, req, fields, [c[row] for c in facet_rows]) if fields else None
-            results[q.qi] = _emit(req, i, s, h, start, facets)
+        with debug_time("answer.num_hits"):
+            # a single term's hits are its run's length, as the reference counts them
+            num_hits = cnt if route == "single" else torch.bincount(seg, minlength=n)
+        with debug_time("answer.topk"):
+            index.count_sorted(route, 2 * seg.shape[0])
+            tseg, ids, scores = segmented_topk(seg, final, a, n, k)
+        with debug_time("answer.readback"):
+            facet_rows = () if extras is None else [
+                facet_counts(rel, seg, a, n).cpu().numpy() for _f, rel in extras.facets
+            ]
+            nh = num_hits.cpu().numpy() if torch.is_tensor(num_hits) else num_hits
+            tseg, ids, scores = tseg.cpu().numpy(), ids.cpu().numpy(), scores.cpu().numpy()
+        with debug_time("answer.emit"):
+            fields = [f for f, _rel in extras.facets] if facet_rows else []
+            for row, (q, (i, s), h) in enumerate(zip(chunk, _split(tseg, ids, scores, n), nh)):
+                req = requests[q.qi]
+                facets = _facets_of(index, req, fields, [c[row] for c in facet_rows]) if fields else None
+                results[q.qi] = _emit(req, i, s, h, start, facets)
 
 
 def _stage(dev, frow, panchors):
@@ -701,32 +711,45 @@ def search_batch(requests: List, index) -> List[SearchResult]:
     With a mesh attached (``TorchIndex.attach_mesh``) the batch is
     answered on it (:func:`..parallel.mesh_executor.search_batch_mesh`).
     ``index`` may be a ``Persistence``: its upload answers
-    (:func:`..persistence.as_index`)."""
+    (:func:`..persistence.as_index`). The call is the root span
+    ``search_batch`` (:mod:`..trace`)."""
+    with info_time("search_batch"):
+        return _search_batch(requests, as_index(index))
+
+
+def _search_batch(requests: List, index) -> List[SearchResult]:
+    """:func:`search_batch` on a ``TorchIndex``, inside its caller's span."""
     from .executor import execute
 
-    index = as_index(index)
     if index.mesh_ctx is not None:
         from ..parallel.mesh_executor import search_batch_mesh
 
         return search_batch_mesh(requests, index)
     start = time.time_ns()
-    plans = [_plan(req, index) for req in requests]
+    with debug_time("search_batch.plan"):
+        plans = [_plan(req, index) for req in requests]
     results: List = [None] * len(requests)
     for qi, (req, plan) in enumerate(zip(requests, plans)):
         if plan.kind == "executor":
             results[qi] = execute(req, index, plan.reason)
-    fuzzy = prefetch_fuzzy_matches(
-        index, set(_fuzzy_specs([r for r, p in zip(requests, plans) if p.kind != "executor"]))
-    )
-    plain, generic = _group(index, requests, plans, fuzzy)
+    with debug_time("search_batch.prefetch"):
+        fuzzy = prefetch_fuzzy_matches(
+            index, set(_fuzzy_specs([r for r, p in zip(requests, plans) if p.kind != "executor"]))
+        )
+    with debug_time("search_batch.resolve"):
+        plain, generic = _group(index, requests, plans, fuzzy)
     for route, queries in plain.items():
-        _answer(index, route, queries, requests, results, start)
+        if queries:
+            with debug_time("search_batch.answer"):
+                _answer(index, route, queries, requests, results, start)
     for (route, boost_keys, facet_fields), queries in generic.items():
-        extras = _group_extras(index, boost_keys, facet_fields, queries, requests, fuzzy)
-        _answer(index, route, queries, requests, results, start, extras)
+        with debug_time("search_batch.answer"):
+            extras = _group_extras(index, boost_keys, facet_fields, queries, requests, fuzzy)
+            _answer(index, route, queries, requests, results, start, extras)
     for req, plan, res in zip(requests, plans, results):
         if req.why_found and plan.kind != "executor":
-            _attach_why_found(index, req, res, fuzzy)
+            with debug_time("search_batch.why_found"):
+                _attach_why_found(index, req, res, fuzzy)
     return results
 
 

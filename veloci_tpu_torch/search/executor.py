@@ -64,7 +64,7 @@ from ..ops.postings import resolve_to_anchor_dense
 from ..ops.topk import topk_dense
 from ..persistence import as_index
 from ..query.request import RequestBoostPart, SearchRequest
-from ..trace import info_time
+from ..trace import debug_time, info_time
 from . import batch
 from .boost import (
     apply_anchor_boost_values_device,
@@ -195,19 +195,8 @@ def _eval_scores(ctx, node, boosts):
     explain node or None): a child's representative is its leftmost leaf's
     first term. With explain, a leaf's 1:n boost records its application."""
     if node.kind == SEARCH:
-        part = node.part
-        fsr = ctx.field_search(part)
-        ids = fsr.term_ids
-        dense = resolve_to_anchor_dense(ctx.index, leaf_field(part), ids, fsr.term_scores)
-        b1n = _matching_1n_boost(part, list(boosts) + _option_boosts(part.options))
-        if b1n is not None:
-            anchors, values = boost_to_anchor_values(ctx.index, part.path, b1n, ids)
-            old = dense
-            dense = apply_anchor_boost_values_device(dense, anchors, values, b1n, host_sums=ctx.explain)
-            if ctx.explain:
-                ctx.boost_log.append(BoostRecord(old, dense, ("ratio", None) if b1n.boost_fun == "Log10" else None))
-        enode = ExplainNode("leaf", fsr=fsr) if ctx.explain else None
-        return dense, part.terms[0], part.path, enode
+        with debug_time("execute.leaves"):
+            return _eval_leaf(ctx, node.part, boosts)
     # node-level option boosts join the subtree's (merge_vec, execution_plan.rs:268-275)
     sub_boosts = list(boosts) + _option_boosts(node.options)
     children = [_eval_scores(ctx, q, sub_boosts) for q in node.queries]
@@ -217,17 +206,35 @@ def _eval_scores(ctx, node, boosts):
         return children[0]
     enode = None
     if node.kind == OR:
-        dense = _union(ctx, children)
+        with debug_time("execute.combine"):
+            dense = _union(ctx, children)
         if ctx.explain:
             enode = ExplainNode("or", children=[c[3] for c in children], planes=[c[0] for c in children],
                                 terms=[c[1] for c in children])
     elif node.kind == AND:
-        dense = _intersect(ctx, children)
+        with debug_time("execute.combine"):
+            dense = _intersect(ctx, children)
         if ctx.explain:
             enode = ExplainNode("and", children=[c[3] for c in children])
     else:
         raise InvalidRequestError(f"unknown node kind {node.kind}")
     return dense, children[0][1], children[0][2], enode
+
+
+def _eval_leaf(ctx, part, boosts):
+    """A leaf's plane, as :func:`_eval_scores` returns it."""
+    fsr = ctx.field_search(part)
+    ids = fsr.term_ids
+    dense = resolve_to_anchor_dense(ctx.index, leaf_field(part), ids, fsr.term_scores)
+    b1n = _matching_1n_boost(part, list(boosts) + _option_boosts(part.options))
+    if b1n is not None:
+        anchors, values = boost_to_anchor_values(ctx.index, part.path, b1n, ids)
+        old = dense
+        dense = apply_anchor_boost_values_device(dense, anchors, values, b1n, host_sums=ctx.explain)
+        if ctx.explain:
+            ctx.boost_log.append(BoostRecord(old, dense, ("ratio", None) if b1n.boost_fun == "Log10" else None))
+    enode = ExplainNode("leaf", fsr=fsr) if ctx.explain else None
+    return dense, part.terms[0], part.path, enode
 
 
 def _phrase_boost(ctx, phrase_boosts, dense):
@@ -253,48 +260,56 @@ def execute(request, index, reason: str) -> SearchResult:
     index.count_path("executor")
     count_fallback(reason)
     boost_terms = list(request.boost_term or ())
-    # the tree's, the filter's and the phrase pairs' fuzzy leaves in one
-    # prefetch, with the boost_term parts' not cached yet, to share its launch
-    # (term_boost_anchors sweeps any it still misses)
-    specs = set(batch._fuzzy_specs([request]))
-    uncached = [p for p in boost_terms if p.key() not in index.term_boost_cache]
-    specs.update(s for s in map(fuzzy_spec, uncached) if s is not None)
-    fuzzy = prefetch_fuzzy_matches(index, specs)
+    with debug_time("execute.leaves"):
+        # the tree's, the filter's and the phrase pairs' fuzzy leaves in one
+        # prefetch, with the boost_term parts' not cached yet, to share its
+        # launch (term_boost_anchors sweeps any it still misses)
+        specs = set(batch._fuzzy_specs([request]))
+        uncached = [p for p in boost_terms if p.key() not in index.term_boost_cache]
+        specs.update(s for s in map(fuzzy_spec, uncached) if s is not None)
+        fuzzy = prefetch_fuzzy_matches(index, specs)
     ctx = _Ctx(index, fuzzy, request)
     boosts = list(request.boost or ())
     dense, _term, _path, enode = _eval_scores(ctx, request.search_req, boosts)
-    if request.filter is not None:
-        dense = torch.where(batch._filter_mask_device(index, request.filter, fuzzy), dense, 0.0)
-    for b in boosts:  # boost columns at anchors (execution_plan.rs:168-183)
-        if "[]" not in b.path:
-            old = dense
-            dense = apply_boost_dense_device(dense, batch._boost_factors(index, batch._boost_key(b)))
-            if ctx.explain:  # Log10 explains its factor, log10(value + param), too
-                log10 = (("column", (index.get_boost(batch._boost_path(b))[0], _F32(b.param or 0.0)))
-                         if b.boost_fun == "Log10" else None)
-                ctx.boost_log.append(BoostRecord(old, dense, log10))
-    if request.phrase_boosts:
-        dense = _phrase_boost(ctx, request.phrase_boosts, dense)
-    term_id_hits, term_texts = merge_field_hits(map(ctx.field_search, request.search_req.walk_parts()))
-    if boost_terms:  # boost.rs:89-196
-        dense = dense * term_boost_factor_device(index, boost_terms, term_boost_anchors(index, boost_terms, fuzzy))
-    if request.text_locality:  # boost.rs:11-87, a host factor uploaded once
-        factor = text_locality_boost(index, term_id_hits, ctx.num_docs)
-        dense = dense * torch.from_numpy(factor).to(index.device)
+    with debug_time("execute.combine"):
+        if request.filter is not None:
+            dense = torch.where(batch._filter_mask_device(index, request.filter, fuzzy), dense, 0.0)
+        for b in boosts:  # boost columns at anchors (execution_plan.rs:168-183)
+            if "[]" not in b.path:
+                old = dense
+                dense = apply_boost_dense_device(dense, batch._boost_factors(index, batch._boost_key(b)))
+                if ctx.explain:  # Log10 explains its factor, log10(value + param), too
+                    log10 = (("column", (index.get_boost(batch._boost_path(b))[0], _F32(b.param or 0.0)))
+                             if b.boost_fun == "Log10" else None)
+                    ctx.boost_log.append(BoostRecord(old, dense, log10))
+        if request.phrase_boosts:
+            dense = _phrase_boost(ctx, request.phrase_boosts, dense)
     result = SearchResult()
-    result.why_found_terms = term_texts
-    result.num_hits = int((dense > 0).sum())
-    if request.facets:
-        result.facets = {f.field: get_facet(index, f, dense) for f in request.facets}
+    with debug_time("execute.extras"):
+        term_id_hits, term_texts = merge_field_hits(map(ctx.field_search, request.search_req.walk_parts()))
+        if boost_terms:  # boost.rs:89-196
+            dense = dense * term_boost_factor_device(
+                index, boost_terms, term_boost_anchors(index, boost_terms, fuzzy))
+        if request.text_locality:  # boost.rs:11-87, a host factor uploaded once
+            factor = text_locality_boost(index, term_id_hits, ctx.num_docs)
+            dense = dense * torch.from_numpy(factor).to(index.device)
+        result.why_found_terms = term_texts
+        result.num_hits = int((dense > 0).sum())
+        if request.facets:
+            result.facets = {f.field: get_facet(index, f, dense) for f in request.facets}
     top = request.top if request.top is not None else 10
     skip = request.skip or 0
-    ids, scores = topk_dense(dense, top + skip)
-    ids, scores = ids[skip:].cpu().numpy(), scores[skip:].cpu().numpy()
-    result.data = [Hit(int(i), float(s)) for i, s in zip(ids, scores)]
-    if request.why_found and request.select is not None:
-        result.why_found_info = get_why_found(index, [h.id for h in result.data], term_id_hits)
-    if ctx.explain:
-        result.explain = collect_explain(index, enode, [h.id for h in result.data], ctx.boost_log)
+    with debug_time("execute.topk"):
+        # topk_dense selects over the plane's hits, whose count the host holds
+        index.count_sorted("executor", result.num_hits)
+        ids, scores = topk_dense(dense, top + skip)
+        ids, scores = ids[skip:].cpu().numpy(), scores[skip:].cpu().numpy()
+    with debug_time("execute.emit"):
+        result.data = [Hit(int(i), float(s)) for i, s in zip(ids, scores)]
+        if request.why_found and request.select is not None:
+            result.why_found_info = get_why_found(index, [h.id for h in result.data], term_id_hits)
+        if ctx.explain:
+            result.explain = collect_explain(index, enode, [h.id for h in result.data], ctx.boost_log)
     result.execution_time_ns = time.time_ns() - start
     return result
 
@@ -321,9 +336,10 @@ def search(request, index, dense_only: bool = False) -> SearchResult:
 
             count_path("mesh_per_request")
             return mesh_search(request, index, dense_only)
-        plan = batch._plan(request, index)
+        with debug_time("search.plan"):
+            plan = batch._plan(request, index)
         if plan.kind != "executor" and not dense_only:
-            return batch.search_batch([request], index)[0]
+            return batch._search_batch([request], index)[0]
         return execute(request, index, plan.reason if plan.kind == "executor" else "dense_only")
 
 

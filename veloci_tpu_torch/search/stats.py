@@ -1,7 +1,10 @@
 """Serving observability: process-wide counters of the routes that answered.
 
 Counterpart of ``veloci_tpu/search/stats.py``, with the same functions and
-the same :func:`snapshot` keys, served as ``GET /stats`` (``server.py``).
+the same :func:`snapshot` keys, served as ``GET /stats`` (``server.py``),
+but for the reference's ``record_latency`` and ``latency_ms_total``, which
+nothing writes there. A request's time is read from the program's spans
+(:mod:`..trace`).
 The routes are the port's own: :func:`.batch.search_batch` counts each
 request under its tree route (``batched_single_term``, ``batched_tree``,
 ``batched_tree_deep``, ``batched_generic``, the keys of
@@ -19,12 +22,11 @@ import time
 from collections import Counter
 from typing import Dict
 
-__all__ = ["count_path", "count_fallback", "record_latency", "snapshot", "reset"]
+__all__ = ["count_path", "count_fallback", "snapshot", "reset"]
 
 _LOCK = threading.Lock()
 _PATHS: Counter = Counter()
 _FALLBACKS: Counter = Counter()
-_LATENCY_NS: Counter = Counter()  # total ns per path
 _START = time.time()
 
 
@@ -39,11 +41,6 @@ def count_fallback(reason: str, n: int = 1) -> None:
         _FALLBACKS[reason] += n
 
 
-def record_latency(path: str, ns: int) -> None:
-    with _LOCK:
-        _LATENCY_NS[path] += ns
-
-
 def snapshot() -> Dict:
     with _LOCK:
         total = sum(_PATHS.values())
@@ -55,7 +52,6 @@ def snapshot() -> Dict:
             "fast_path_pct": round(100.0 * fast / total, 2) if total else None,
             "paths": dict(_PATHS),
             "fallback_reasons": dict(_FALLBACKS),
-            "latency_ms_total": {k: round(v / 1e6, 3) for k, v in _LATENCY_NS.items()},
         }
 
 
@@ -63,4 +59,3 @@ def reset() -> None:
     with _LOCK:
         _PATHS.clear()
         _FALLBACKS.clear()
-        _LATENCY_NS.clear()
